@@ -1,0 +1,158 @@
+"""Batched branch-MPC controller, QP path (the reference package's
+``controllers/branch_mpc.py``, batch-last step).
+
+One receding-horizon step over a batch of independent trees: warm-start
+shift → tree build → stage-cost assembly (batch-leading) → fused IPM in the
+batch-last layout (the CUDA kernel on the card) → optional f64 restart.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from belief_planning_tpu_torch.models.policies import cast_params
+from belief_planning_tpu_torch.models.predictive import PredictiveModel
+from belief_planning_tpu_torch.solvers.layout import _from_bl, _to_bl, cost_to_bl
+from belief_planning_tpu_torch.solvers.tree_qp import assemble_stage_cost, build_stage_plan
+from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
+from belief_planning_tpu_torch.solvers.tree_qp_pl import qp_ipm_solve_pl
+from belief_planning_tpu_torch.tree.engine import build_tree, shift_warm_start
+from belief_planning_tpu_torch.tree.topology import TreeTopology, build_topology
+from belief_planning_tpu_torch.utils.config import BranchMPCParams
+
+
+class MPCCarry(NamedTuple):
+    """Warm-start state carried between receding-horizon steps (batch-leading)."""
+
+    u_lin: Any        # (Bt, totalu, d) previous solution inputs
+    p: Any            # (Bt, nbr, m) previous branch probabilities (argmax shift)
+    old_input: Any    # (Bt, d) previously applied input
+    initialized: Any  # (Bt,) bool — False on the first solve
+
+
+class SolveResult(NamedTuple):
+    xPred: Any        # (Bt, totalx, n)
+    uPred: Any        # (Bt, totalu, d)
+    slack: Any        # (Bt, totalu, Nc)
+    w: Any            # (Bt, nbr) branch weights
+    p: Any            # (Bt, nbr, m)
+    x_lin: Any        # (Bt, totalx, n) linearization trajectory used
+    z: Any            # (Bt, totalu, n) obstacle nodes
+    prim_res: Any     # (Bt,) primal residual
+    feasible: Any     # (Bt,) bool
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the CUDA device; only an explicit ``"cpu"`` runs on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("belief_planning_tpu_torch runs on a CUDA device; none is "
+                           "available (pass device='cpu' to run on the CPU)")
+    return dev
+
+
+def _cast(tree, dtype):
+    return type(tree)(*(a.to(dtype) for a in tree))
+
+
+def make_branch_mpc_batched_step(
+    model: PredictiveModel,
+    params: BranchMPCParams,
+    variant: str = "prox",
+    replicate_quirks: bool = True,
+    feas_tol: float = 1e-3,
+    ipm: QPIPMConfig = QPIPMConfig(),
+    prep_dtype=None,
+    refine_f64: int = 0,
+    refine_cfg: Optional[QPIPMConfig] = None,
+    solve_dtype=None,
+    device=None,
+) -> Tuple[TreeTopology, Any, Any]:
+    """Build ``(topo, init_carry, step)`` for a batch of independent trees.
+
+    ``step(carrys, xs, zs, xRefs, policy_params) -> (carrys, SolveResult)``
+    takes batch-leading tensors (``xs (Bt, n)``) and policy params shared by
+    all lanes. The IPM iterations run batch-last through the fused iteration:
+    the CUDA kernel on the card, its plain version on the CPU.
+
+    ``device``: ``None`` = ``"cuda"`` (raises without CUDA); pass ``"cpu"``
+    to run on the CPU.
+
+    ``prep_dtype``: optional wider dtype for the tree build and cost assembly
+    only. ``solve_dtype``: dtype of the fused solve (default: the input's).
+
+    ``refine_f64``: number of f64 restart iterations after the solve,
+    warm-started from its primal (x, u, s) with fresh duals, on f64-built QP
+    data (implies ``prep_dtype=float64``); ``refine_cfg`` overrides the
+    restart config. Unlike the JAX package, which has to run this phase as
+    plain XLA, the restart runs through the same kernel in double on the card.
+    """
+    dev = resolve_device(device)
+    topo = build_topology(params.N, params.NB, model.m, params.n, params.d)
+    plan = build_stage_plan(topo)
+    Fx, bx, Fu, bu = params.Fx, params.bx, params.Fu, params.bu
+    Q, R, Qf, dR, Qslack = params.Q, params.R, params.Qf, params.dR, params.Qslack
+    if refine_f64 > 0 and prep_dtype is None:
+        prep_dtype = torch.float64
+    # the restart keeps the tuned default start (μ0=10, sl_min=0.1)
+    rcfg = refine_cfg if refine_cfg is not None else QPIPMConfig(iters=refine_f64)
+
+    def init_carry(batch: int, dtype=torch.float32) -> MPCCarry:
+        z = lambda *shape: torch.zeros((batch,) + shape, dtype=dtype, device=dev)
+        return MPCCarry(
+            u_lin=z(topo.totalu, params.d), p=z(topo.n_branches, topo.m),
+            old_input=z(params.d),
+            initialized=torch.zeros(batch, dtype=torch.bool, device=dev))
+
+    def prep(carry: MPCCarry, x, z, xRef, policy_params):
+        pd = prep_dtype if prep_dtype is not None else x.dtype
+        pp = cast_params(policy_params, pd, dev)
+        u_lin = torch.where(carry.initialized[:, None, None],
+                            shift_warm_start(topo, carry.u_lin, carry.p),
+                            torch.zeros_like(carry.u_lin))
+        ts = build_tree(model, topo, x.to(pd), z.to(pd), u_lin.to(pd), pp)
+        cost = assemble_stage_cost(topo, ts, Q, R, Qf, dR, Qslack, xRef.to(pd),
+                                   carry.old_input.to(pd), variant=variant,
+                                   replicate_quirks=replicate_quirks)
+        return ts, cost
+
+    def solve(ts, cost, dtype, x_warm, u_warm, cfg, s_warm=None):
+        ts = _cast(ts, dtype)
+        return qp_ipm_solve_pl(
+            plan, cost_to_bl(_cast(cost, dtype)), _to_bl(ts.A), _to_bl(ts.Bm),
+            _to_bl(ts.C), _to_bl(ts.dh), _to_bl(ts.h0), Fx, bx, Fu, bu,
+            x_warm, u_warm, cfg, s_warm_bl=s_warm)
+
+    def step(carrys: MPCCarry, xs, zs, xRefs, policy_params):
+        dt_in = xs.dtype
+        sd = solve_dtype if solve_dtype is not None else dt_in
+        # profiler spans (bp.prep / bp.solve / bp.refine_f64): the per-layer
+        # times of a step under torch.profiler; near-free when it is off
+        with record_function("bp.prep"):
+            ts_p, cost_p = prep(carrys, xs, zs, xRefs, policy_params)
+        ts_b = _cast(ts_p, sd)
+        with record_function("bp.solve"):
+            x_bl, u_bl, s_bl, info = solve(ts_b, cost_p, sd, _to_bl(ts_b.x_lin),
+                                           _to_bl(ts_b.u_lin), ipm)
+        if refine_f64 > 0:
+            f64 = torch.float64
+            with record_function("bp.refine_f64"):
+                x_bl, u_bl, s_bl, info2 = solve(ts_p, cost_p, f64, x_bl.to(f64),
+                                                u_bl.to(f64), rcfg, s_warm=s_bl.to(f64))
+            info = {**info, "prim_res": info2["prim_res"], "gap": info2["gap"]}
+        x_nodes = _from_bl(x_bl).to(dt_in)
+        u = _from_bl(u_bl).to(dt_in)
+        s = _from_bl(s_bl).to(dt_in)
+        prim = info["prim_res"].to(dt_in)
+        new_carry = MPCCarry(
+            u_lin=u, p=ts_b.p.to(dt_in), old_input=u[:, 0].clone(),
+            initialized=torch.ones(u.shape[0], dtype=torch.bool, device=u.device))
+        res = SolveResult(xPred=x_nodes, uPred=u, slack=s, w=ts_b.w, p=ts_b.p,
+                          x_lin=ts_b.x_lin, z=ts_b.z, prim_res=prim,
+                          feasible=prim < feas_tol)
+        return new_carry, res
+
+    return topo, init_carry, step

@@ -1,0 +1,470 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``belief_planning_tpu_torch``) on one CUDA card.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each:
+
+0. the card's name and power limit (``nvidia-smi``);
+1. build: nvcc compiles ``csrc/tree_qp_ipm_iter.cu`` (timed, with the
+   ptxas register / spill report);
+2. the kernel against its plain PyTorch version, both on the card, on real
+   QP data from the port's tree build and cost assembly (N=8, NB=2): one
+   iteration in f64 at B=256 and at B=32768 (bar 1e-10 of each field's
+   magnitude), one in f32 at B=32768 (as accurate as the plain version in
+   f32, both measured against the plain version in f64), and a full
+   8-iteration f64 solve at B=256 (max |Δu|, |Δx| reported);
+3. the main path: ``make_branch_mpc_batched_step`` at the bench config
+   (N=8, NB=2, IPM-8 with 2 Gondzio correctors, f32, B=32768, shared policy
+   params): one warm-up step and timed warm-started steps, each timed by
+   fetching ``uPred`` to the host; outputs finite and inside the input
+   bounds; the launch count equal to 8 × steps; p50 step at B=256; and the
+   f64 path on the card against the same step on the CPU (the plain version
+   the tests hold against the JAX package) at B=64;
+4. the f64 restart (``refine_f64=10``) at B=256, which runs the double
+   kernel on the path;
+5. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
+
+Any failed check raises and the script exits non-zero. It needs one card,
+and exits non-zero without printing a result when CUDA is unavailable or the
+package is not beside it.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# f32 kernel vs plain version, one iteration. The two differ in operation
+# order and in nvcc's FMA contraction, and f32 rounding (unit roundoff 6e-8)
+# is amplified by the conditioning of the barrier-weighted factor, which
+# varies from lane to lane. So the f32 bar is one of accuracy: against the
+# plain version in f64 on the same (upcast) inputs, the kernel's error in
+# every field is at most F32_ERR_RATIO × the plain f32 version's own error
+# plus F32_FLOOR × the field's magnitude (16 f32 ulps), i.e. the kernel in
+# f32 is as accurate as the plain version in f32.
+F32_ERR_RATIO = 2.0
+F32_FLOOR = 1e-6
+F64_TOL = 1e-10
+# H100 SXM data-sheet peaks at its full 700 W power limit: HBM3 bandwidth,
+# and the non-tensor-core f32 / f64 rates
+H100_BYTES_PER_S = 3.35e12
+H100_FLOPS = {"float32": 67e12, "float64": 34e12}
+
+N, NB, n, d = 8, 2, 4, 2
+BENCH_B = 32768
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def overtake_setup():
+    """The bench's reference overtake configuration (the port's counterpart
+    of ``bench.py``'s setup)."""
+    from belief_planning_tpu_torch.models.policies import highway_policy_set
+    from belief_planning_tpu_torch.models.predictive import highway_model
+    from belief_planning_tpu_torch.presets import init_branch_mpc
+    from belief_planning_tpu_torch.utils.config import BranchConstants
+
+    cons = BranchConstants(s1=2, s2=3, c2=0.5, tran_diag=0.3, alpha=1, R=1.2,
+                           am=6.0, rm=0.3, J_c=20, s_c=1, ylb=0., yub=7.2,
+                           L=4, W=2.5, col_alpha=5, Kpsi=0.1)
+    xRef = np.array([0.5, 1.8, 15.0, 0.0])
+    pset = highway_policy_set(cons, xRef)
+    model = highway_model(cons, pset, N=N, dt=0.1)
+    params = init_branch_mpc(n, d, N, NB, xRef, am=6.0, rm=0.3, N_lane=4, W=cons.W)
+    return pset, model, params
+
+
+def bench_states(B, seed=0):
+    """Physically plausible in-bounds states, drawn as ``bench.py`` draws them."""
+    rng = np.random.default_rng(seed)
+    xs = np.array([0.0, 1.8, 20.0, 0.0]) + rng.normal(0, 0.2, (B, 4))
+    xs[:, 1] = np.clip(xs[:, 1], 1.3, 13.1)
+    xs[:, 3] = np.clip(xs[:, 3], -0.2, 0.2)
+    zs = np.array([12.0, 1.8, 17.0, 0.0]) + rng.normal(0, 0.5, (B, 4))
+    zs[:, 1] = np.clip(zs[:, 1], 1.3, 13.1)
+    zs[:, 3] = np.clip(zs[:, 3], -0.2, 0.2)
+    xRefs = np.tile(np.array([0., 1.8, 18., 0.]), (B, 1))
+    return xs, zs, xRefs
+
+
+def qp_case(dev, B, dtype, cfg):
+    """The fused solve's real inputs at the bench config: tree build and cost
+    assembly in f64 on the card, cast to ``dtype``, then the solver's setup."""
+    from belief_planning_tpu_torch.models.policies import cast_params
+    from belief_planning_tpu_torch.solvers.layout import _to_bl, cost_to_bl
+    from belief_planning_tpu_torch.solvers.tree_qp import assemble_stage_cost, build_stage_plan
+    from belief_planning_tpu_torch.solvers.tree_qp_pl import setup_ipm
+    from belief_planning_tpu_torch.tree.engine import build_tree
+    from belief_planning_tpu_torch.tree.topology import build_topology
+
+    pset, model, params = overtake_setup()
+    topo = build_topology(N, NB, model.m, n, d)
+    plan = build_stage_plan(topo)
+    xs, zs, xRefs = bench_states(B)
+    f64 = torch.float64
+    t = lambda a: torch.as_tensor(a, dtype=f64, device=dev)
+    ts = build_tree(model, topo, t(xs), t(zs), torch.zeros(B, topo.totalu, d, dtype=f64, device=dev),
+                    cast_params(pset.params, f64, dev))
+    cost = assemble_stage_cost(topo, ts, params.Q, params.R, params.Qf, params.dR,
+                               params.Qslack, t(xRefs), torch.zeros(B, d, dtype=f64, device=dev))
+    cast = lambda a: _to_bl(a.to(dtype))
+    cost_bl = cost_to_bl(type(cost)(*(c.to(dtype) for c in cost)))
+    su = setup_ipm(plan, cost_bl, cast(ts.A), cast(ts.Bm), cast(ts.dh), cast(ts.h0),
+                   params.Fx, params.bx, params.Fu, params.bu, cast(ts.x_lin),
+                   cast(ts.u_lin), cfg)
+    return plan, params, su
+
+
+def iteration_bytes(su):
+    """Least traffic of one iteration: each constant read once, the carry read
+    and written once, the gap written once."""
+    elems = sum(c.numel() for c in su.const_args) + 2 * sum(c.numel() for c in su.carry0)
+    elems += su.carry0[0].shape[-1]
+    return elems * su.carry0[0].element_size()
+
+
+def iteration_flops(plan, nFx, nFu, gondzio, lanes):
+    """Floating-point operations of one iteration, counted from the kernel's
+    loops (multiply-add = 2) per stage, summed over stages and lanes. The
+    count is data-independent: every corrector candidate is computed whether
+    or not a lane accepts it."""
+    nx, nu = plan.topo.n, plan.topo.d
+    nd, nc, nf = nx + nu, nFx + 1, nFu
+    U = plan.topo.totalu
+    entries = 2 * nc + nf                       # slack/multiplier rows per stage
+    residual = nc * (2 * nx + 14) + nf * (2 * nu + 6) + nx * (2 * nx + 2 * nc + 2) \
+        + nu * (2 * nu + 2 * nf + 4 * nu + 3)
+    riccati = (3 * nc + 2 * nx * nx + 3 * (nc - 1) * nx * nx + 2 * nx * nx + 3 * nf * nu * nu
+               + 2 * nu * nx * nx + 2 * nu * nu * nx + nu * nu * (2 * nx + 4)
+               + 4 * nu * nx * nx + 2 * nu * nd * nu + 2 * nx * nx * nx
+               + 2 * nd * nd * nu + 2 * nx * nx * nx + 3 * nx * nx + 2 * nd * nd
+               + nx * nd * 2 * nu + 12)
+    kkt = (nc * 12 + 4 * (nc - 1) * nx + 6 * nx + nf * (4 + 2 * nu) + nu   # rhs
+           + nu * (2 * nx + 2) + nu * 2 * nu + nd * (2 * nd + 2 * nu) + nx   # backward
+           + nu * 2 * nd + nd * 2 * nd + nx * 2 * nu                          # forward
+           + nc * (2 * nx + 11) + nf * (2 * nu + 5))                          # slacks
+    n_dir = 2 + gondzio
+    step_calls = 1 + 2 * gondzio + 1
+    gap_calls = 1 + 2
+    per_stage = (residual + riccati + n_dir * kkt + step_calls * 3 * 2 * entries
+                 + gap_calls * 5 * entries + 3 * entries * (1 + gondzio)
+                 + gondzio * 10 * entries + gondzio * 2 * (nx + nu + 2 * entries)
+                 + 2 * (nx + nu + 2 * entries))
+    return per_stage * U * lanes
+
+
+def cuda_ms(fn, reps):
+    """Mean milliseconds per call on the device (CUDA events, after a warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def scaled_err(a_list, b_list, names):
+    """Per field: max |a − b| / max |b|, and max |a − b|."""
+    out = {}
+    for name, a, b in zip(names, a_list, b_list):
+        if not (bool(a.isfinite().all()) and bool(b.isfinite().all())):
+            raise AssertionError(f"{name}: non-finite values")
+        diff = (a - b).abs().max().item()
+        out[name] = (diff / max(b.abs().max().item(), 1e-300), diff)
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        import belief_planning_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the belief_planning_tpu_torch package is not beside this script: {e}",
+              file=sys.stderr)
+        return 2
+    from belief_planning_tpu_torch.controllers.branch_mpc import make_branch_mpc_batched_step
+    from belief_planning_tpu_torch.solvers import tree_qp_pl
+    from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    name = torch.cuda.get_device_name(0)
+    card = {"card": name, "nvidia_smi": smi}
+    emit({"phase": "device", **card, "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    # ---- 1. build ---------------------------------------------------------
+    K = tree_qp_pl.KERNEL
+    K.load()
+    ptxas = [ln.strip() for ln in K.build_log.splitlines()
+             if "registers" in ln or "spill" in ln or "stack frame" in ln]
+    emit({"phase": "build", "seconds": round(K.build_seconds, 3), "ptxas": ptxas, **card})
+
+    # ---- 2. kernel vs plain version on the card ----------------------------
+    cfg = QPIPMConfig(iters=8, gondzio=2)
+    names = tree_qp_pl.CARRY_ORDER + ["gap"]
+
+    def plain_step(plan):
+        nFx, nFu = 4, 4
+        mtot = float(plan.topo.totalu * (2 * (nFx + 1) + nFu))
+        return tree_qp_pl.make_iteration(plan, cfg, nFx, nFu, mtot)
+
+    def one_iteration(B, dtype, advance=0):
+        plan, _, su = qp_case(dev, B, dtype, cfg)
+        plain = plain_step(plan)
+        carry = su.carry0
+        for _ in range(advance):      # a later carry of the same solve (plain steps)
+            carry = plain(*su.const_args, *carry)[:tree_qp_pl.CARRY_FIELDS]
+        got = su.step_fn(*su.const_args, *carry)
+        torch.cuda.synchronize()
+        ref = plain(*su.const_args, *carry)
+        errs = scaled_err(got, ref, names)
+        worst = max(errs, key=lambda k: errs[k][0])
+        line = {"phase": "kernel_vs_plain", "B": B, "dtype": str(dtype)[6:],
+                "iteration": advance + 1, "worst_field": worst,
+                "worst_scaled": errs[worst][0], "max_abs_err": max(e[1] for e in errs.values())}
+        if dtype == torch.float64:
+            emit({**line, "tol_scaled": F64_TOL, **card})
+            if errs[worst][0] > F64_TOL:
+                raise AssertionError(f"kernel disagrees with its plain version: {worst} "
+                                     f"{errs[worst][0]:.3e} > {F64_TOL:.0e} (f64, B={B})")
+        else:
+            up = lambda ts: [t.double() for t in ts]
+            ref64 = plain(*up(su.const_args), *up(carry))
+            acc = {}
+            for nm, g, r, r64 in zip(names, got, ref, ref64):
+                e_k = (g.double() - r64).abs().max().item()
+                e_p = (r.double() - r64).abs().max().item()
+                bar = F32_ERR_RATIO * e_p + F32_FLOOR * r64.abs().max().item()
+                acc[nm] = (e_k, e_p, bar)
+            bad = [nm for nm, (e_k, _, bar) in acc.items() if e_k > bar]
+            lane_rel = torch.stack([((g - r).abs() / r.abs().amax()).reshape(-1, B).amax(0)
+                                    for g, r in zip(got, ref)]).amax(0)
+            emit({**line, "err_vs_f64": {nm: {"kernel": v[0], "plain": v[1], "bar": v[2]}
+                                          for nm, v in acc.items()},
+                  "lanes_over_1e-4": int((lane_rel > 1e-4).sum()),
+                  "lanes_over_1e-5": int((lane_rel > 1e-5).sum()), **card})
+            if bad:
+                raise AssertionError(f"f32 kernel less accurate than the plain version in "
+                                     f"{bad} (B={B})")
+        return plan, su, plain, carry, max(e[1] for e in errs.values())
+
+    one_iteration(256, torch.float64)
+    one_iteration(256, torch.float64, advance=4)
+    one_iteration(BENCH_B, torch.float64)
+    plan, su, plain, carry, f32_err = one_iteration(BENCH_B, torch.float32)
+
+    # full 8-iteration f64 solve: the kernel on the card, the plain version on the CPU
+    plan64, _, su64 = qp_case(dev, 256, torch.float64, cfg)
+    full = []
+    for step, to in ((su64.step_fn, lambda t: t), (plain_step(plan64), lambda t: t.cpu())):
+        c = tuple(to(t) for t in su64.carry0)
+        ca = [to(t) for t in su64.const_args]
+        for _ in range(cfg.iters):
+            c = step(*ca, *c)[:tree_qp_pl.CARRY_FIELDS]
+        full.append([t.cpu() for t in c])
+    du = (full[0][1] - full[1][1]).abs().max().item()
+    dx = (full[0][0] - full[1][0]).abs().max().item()
+    emit({"phase": "kernel_vs_plain_solve", "B": 256, "dtype": "float64", "iters": cfg.iters,
+          "max_abs_du": du, "max_abs_dx": dx, "plain_on": "cpu", **card})
+    if not (du < 1e-7 and dx < 1e-6):
+        raise AssertionError(f"8-iteration f64 solve: |du| {du:.3e}, |dx| {dx:.3e}")
+
+    # kernel timing at the main path's shape (f32, B=32768), plain beside it
+    k_ms = cuda_ms(lambda: su.step_fn(*su.const_args, *carry), reps=5)
+    plain_ms = cuda_ms(lambda: plain(*su.const_args, *carry), reps=2)
+    nbytes = iteration_bytes(su)
+    flops = iteration_flops(plan, 4, 4, cfg.gondzio, BENCH_B)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FLOPS["float32"] * 1e3
+    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    plan_s, _, su_s = qp_case(dev, 256, torch.float32, cfg)
+    k_ms_256 = cuda_ms(lambda: su_s.step_fn(*su_s.const_args, *su_s.carry0), reps=20)
+    plain_s = plain_step(plan_s)
+    plain_ms_256 = cuda_ms(lambda: plain_s(*su_s.const_args, *su_s.carry0), reps=3)
+    bound_ms_256 = max(iteration_bytes(su_s) / H100_BYTES_PER_S,
+                       iteration_flops(plan_s, 4, 4, cfg.gondzio, 256) / H100_FLOPS["float32"]) * 1e3
+    scratch_elems = K.scratch_elems(tree_qp_pl.kernel_ints(plan, cfg, 4, 4))
+    emit({"phase": "kernel_time", "B": BENCH_B, "dtype": "float32", "ms": k_ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+          "bytes": nbytes, "flops": flops, "ms_B256": k_ms_256,
+          "plain_ms_B256": plain_ms_256, "bound_ms_B256": bound_ms_256,
+          "scratch_bytes_per_lane": scratch_elems * 4, **card})
+    del su, carry, su64
+
+    # ---- 3. main path --------------------------------------------------------
+    pset, model, params = overtake_setup()
+    ipm = QPIPMConfig(iters=8, gondzio=2)
+    topo, init_carry, step = make_branch_mpc_batched_step(model, params, "prox", ipm=ipm)
+    f32 = torch.float32
+
+    def drive(B, steps, dtype=f32, stepper=step, init=init_carry, device=dev):
+        xs, zs, xRefs = (torch.as_tensor(a, dtype=dtype, device=device) for a in bench_states(B))
+        carrys = init(B, dtype)
+        carrys, res = stepper(carrys, xs, zs, xRefs, pset.params)     # warm-up step
+        _ = res.uPred.cpu()
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            _c, res = stepper(carrys, xs, zs, xRefs, pset.params)
+            _ = res.uPred.cpu()
+            times.append(time.perf_counter() - t0)
+        return res, times
+
+    steps = 5
+    K.launches = 0
+    res, times = drive(BENCH_B, steps)
+    launches = K.launches
+    u = res.uPred
+    finite = all(bool(t.isfinite().all()) for t in (res.xPred, res.uPred, res.slack, res.prim_res))
+    a_max = u[..., 0].abs().max().item()
+    r_max = u[..., 1].abs().max().item()
+    feas = res.feasible
+    a_max_feas = u[feas][..., 0].abs().max().item() if bool(feas.any()) else 0.0
+    r_max_feas = u[feas][..., 1].abs().max().item() if bool(feas.any()) else 0.0
+    feasible_share = feas.float().mean().item()
+    med = float(np.median(times))
+    _, times256 = drive(256, 10)
+    main = {"phase": "main_path", "B": BENCH_B, "N": N, "NB": NB, "ipm_iters": ipm.iters,
+            "gondzio": ipm.gondzio, "dtype": "float32", "steps_timed": steps,
+            "step_ms_median": med * 1e3, "step_ms_all": [t * 1e3 for t in times],
+            "solves_per_s": BENCH_B / med, "p50_ms_B256": float(np.median(times256)) * 1e3,
+            "launches": launches, "launches_expected": ipm.iters * (steps + 1),
+            "finite": finite, "max_abs_a": a_max, "max_abs_r": r_max,
+            "max_abs_a_feasible": a_max_feas, "max_abs_r_feasible": r_max_feas,
+            "feasible_share": feasible_share,
+            "prim_res_max": res.prim_res.max().item(), **card}
+    emit(main)
+    if not finite:
+        raise AssertionError("main path: non-finite outputs")
+    if launches != ipm.iters * (steps + 1):
+        raise AssertionError(f"main path: {launches} kernel launches, expected "
+                             f"{ipm.iters * (steps + 1)}")
+    # The input bounds hold, within the controller's feasibility tolerance
+    # (feas_tol = 1e-3), on every lane it reports feasible; the f32 IPM-8 leaves
+    # a share of lanes above that residual (reported as feasible_share), as
+    # the JAX package's f32 path does.
+    tol_b = 1e-3
+    if a_max_feas > 6.0 + tol_b or r_max_feas > 0.3 + tol_b:
+        raise AssertionError(f"main path: feasible lanes outside the bounds |a|≤6, |r|≤0.3: "
+                             f"{a_max_feas}, {r_max_feas}")
+    if feasible_share < 0.5:
+        raise AssertionError(f"main path: only {feasible_share:.3f} of lanes feasible")
+    main_launches = launches
+
+    # where a main-path step's time goes: one profiled warm-started step
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for B in (BENCH_B, 256):
+        xs, zs, xRefs = (torch.as_tensor(a, dtype=f32, device=dev) for a in bench_states(B))
+        carrys, _ = step(init_carry(B, f32), xs, zs, xRefs, pset.params)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, r = step(carrys, xs, zs, xRefs, pset.params)
+            _ = r.uPred.cpu()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        on_device, spans = {}, {}
+        for e in prof.events():
+            ms = e.time_range.elapsed_us() / 1e3
+            if e.name.startswith("bp."):
+                kind = "cpu" if e.device_type == DeviceType.CPU else "device"
+                spans[f"{e.name}.{kind}_ms"] = spans.get(f"{e.name}.{kind}_ms", 0.0) + ms
+            elif e.device_type == DeviceType.CUDA:
+                n_, t_ = on_device.get(e.name, (0, 0.0))
+                on_device[e.name] = (n_ + 1, t_ + ms)
+        device_ms = sum(t for _, t in on_device.values())
+        top = sorted(on_device.items(), key=lambda kv: -kv[1][1])[:5]
+        emit({"phase": "main_path_profile", "B": B, "wall_ms_profiled": wall_ms,
+              "device_busy_ms": device_ms,
+              "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
+              "device_ops": sum(n_ for n_, _ in on_device.values()), "spans": spans,
+              "top_device_ms": [[k[:70], t, n_] for k, (n_, t) in top], **card})
+
+    # the f64 path on the card against the same steps on the CPU (plain version)
+    f64 = torch.float64
+    _, cpu_init, cpu_step = make_branch_mpc_batched_step(model, params, "prox", ipm=ipm,
+                                                                device="cpu")
+    _, init64, step64 = make_branch_mpc_batched_step(model, params, "prox", ipm=ipm)
+    outs = {}
+    for where, (st_, in_, dv) in {"cuda": (step64, init64, dev),
+                                  "cpu": (cpu_step, cpu_init, torch.device("cpu"))}.items():
+        xs, zs, xRefs = (torch.as_tensor(a, dtype=f64, device=dv) for a in bench_states(64))
+        c = in_(64, f64)
+        seq = []
+        for _ in range(2):
+            c, r = st_(c, xs, zs, xRefs, pset.params)
+            seq.append((r.uPred.cpu(), r.xPred.cpu()))
+        outs[where] = seq
+    du = max((a[0] - b[0]).abs().max().item() for a, b in zip(outs["cuda"], outs["cpu"]))
+    dx = max((a[1] - b[1]).abs().max().item() for a, b in zip(outs["cuda"], outs["cpu"]))
+    emit({"phase": "main_path_vs_cpu", "B": 64, "dtype": "float64", "steps": 2,
+          "max_abs_du": du, "max_abs_dx": dx, **card})
+    if not (du < 1e-7 and dx < 1e-6):
+        raise AssertionError(f"f64 main path on the card vs CPU: |du| {du:.3e}, |dx| {dx:.3e}")
+
+    # ---- 4. f64 restart through the double kernel ----------------------------
+    _, init_r, step_r = make_branch_mpc_batched_step(model, params, "prox", ipm=ipm,
+                                                     refine_f64=10)
+    K.launches = 0
+    res_r, times_r = drive(256, 1, stepper=step_r, init=init_r)
+    emit({"phase": "refine_f64", "B": 256, "refine_iters": 10, "launches": K.launches,
+          "launches_expected": 2 * (ipm.iters + 10),
+          "finite": bool(res_r.uPred.isfinite().all()),
+          "feasible_share": res_r.feasible.float().mean().item(),
+          "prim_res_max": res_r.prim_res.max().item(), "step_ms": times_r[0] * 1e3, **card})
+    if K.launches != 2 * (ipm.iters + 10) or not bool(res_r.uPred.isfinite().all()):
+        raise AssertionError("refine_f64 step: wrong launch count or non-finite output")
+
+    # ---- 5. kernels line, card line, result ------------------------------------
+    emit({"kernels": [{
+        "name": "tree_qp_ipm_iter",
+        "route": "cuda",
+        "source": "belief_planning_tpu_torch/csrc/tree_qp_ipm_iter.cu",
+        "replaces": "belief_planning_tpu/solvers/tree_qp_pl.py:825",
+        "launches": main_launches,
+        "max_abs_err": f32_err,
+        "ms": k_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }]})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start, **card})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

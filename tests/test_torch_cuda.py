@@ -1,0 +1,118 @@
+"""The CUDA kernel against its plain PyTorch version on the card, and the
+wrapper's checks. Needs a CUDA card (skips without one) and no JAX, so on a
+machine with the card and without JAX it runs on its own:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Also holds the JAX-free QP data builder that the other port tests share."""
+
+import numpy as np
+import pytest
+import torch
+
+from belief_planning_tpu_torch.models.policies import cast_params, highway_policy_set
+from belief_planning_tpu_torch.models.predictive import highway_model
+from belief_planning_tpu_torch.presets import init_branch_mpc
+from belief_planning_tpu_torch.solvers import tree_qp_pl as tpl
+from belief_planning_tpu_torch.solvers.layout import _to_bl, cost_to_bl
+from belief_planning_tpu_torch.solvers.tree_qp import assemble_stage_cost, build_stage_plan
+from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
+from belief_planning_tpu_torch.tree.engine import build_tree
+from belief_planning_tpu_torch.tree.topology import build_topology
+from belief_planning_tpu_torch.utils.config import BranchConstants
+
+torch.set_num_threads(1)
+
+N, NB, B = 4, 2, 6
+ITER_TOL = 1e-10          # one fused iteration, scaled by the field's magnitude
+GONDZIO = 2
+NAMES = tpl.CARRY_ORDER + ["gap"]
+
+
+def qp_data(dtype=torch.float64, device="cpu"):
+    """Real QP data from the port's tree build and cost assembly (f64),
+    cast to ``dtype``: ``(params, plan, cost_bl, batch-last tree arrays)``."""
+    cons = BranchConstants()
+    xRef = np.array([0.5, 1.8, 15.0, 0.0])
+    model = highway_model(cons, highway_policy_set(cons, xRef), N=N, dt=0.1)
+    params = init_branch_mpc(4, 2, N, NB, xRef, am=6.0, rm=0.3, N_lane=4, W=cons.W)
+    topo = build_topology(N, NB, 3, 4, 2)
+    rng = np.random.default_rng(21)
+    xs = np.array([0.0, 1.8, 20.0, 0.0]) + rng.normal(0, [0.3, 0.3, 1.0, 0.05], (B, 4))
+    zs = np.array([9.0, 1.8, 17.0, 0.0]) + rng.normal(0, [1.0, 0.5, 1.0, 0.05], (B, 4))
+    f64 = torch.float64
+    t = lambda a: torch.as_tensor(a, dtype=f64, device=device)
+    ts = build_tree(model, topo, t(xs), t(zs),
+                    torch.zeros(B, topo.totalu, 2, dtype=f64, device=device),
+                    cast_params(highway_policy_set(cons, xRef).params, f64, device))
+    cost = assemble_stage_cost(topo, ts, params.Q, params.R, params.Qf, params.dR, params.Qslack,
+                               t(np.tile([0.0, 1.8, 18.0, 0.0], (B, 1))),
+                               torch.zeros(B, 2, dtype=f64, device=device))
+    cost = type(cost)(*(c.to(dtype) for c in cost))
+    bl = lambda a: _to_bl(a.to(dtype))
+    return params, build_stage_plan(topo), cost_to_bl(cost), \
+        dict(A=bl(ts.A), Bm=bl(ts.Bm), C=bl(ts.C), dh=bl(ts.dh), h0=bl(ts.h0),
+             x=bl(ts.x_lin), u=bl(ts.u_lin))
+
+
+def _setup(dtype, device):
+    params, plan, cost_bl, tsb = qp_data(dtype, device)
+    cfg = QPIPMConfig(iters=6, gondzio=GONDZIO)
+    su = tpl.setup_ipm(plan, cost_bl, tsb["A"], tsb["Bm"], tsb["dh"], tsb["h0"],
+                       params.Fx, params.bx, params.Fu, params.bu, tsb["x"], tsb["u"], cfg)
+    plain = tpl.make_iteration(plan, cfg, 4, 4, float(plan.topo.totalu * 14))
+    return su, plain
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU build")
+    return torch.device("cuda")
+
+
+def test_kernel_matches_plain_f64(cuda_device):
+    """f64: every output field within 1e-10 of its magnitude; one launch."""
+    su, plain = _setup(torch.float64, cuda_device)
+    before = tpl.KERNEL.launches
+    got = su.step_fn(*su.const_args, *su.carry0)
+    assert tpl.KERNEL.launches == before + 1
+    ref = plain(*su.const_args, *su.carry0)
+    for name, a, b in zip(NAMES, got, ref):
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        assert err <= ITER_TOL, (name, err)
+
+
+def test_kernel_matches_plain_f32(cuda_device):
+    """f32: as accurate as the plain version in f32. Against the plain
+    version in f64 on the same (upcast) inputs, the kernel's error in every
+    field is at most 2 × the plain f32 version's + 1e-6 × the magnitude
+    (operation order and FMA contraction differ; f32 rounding is amplified
+    by the barrier-weighted factor's conditioning)."""
+    su, plain = _setup(torch.float32, cuda_device)
+    got = su.step_fn(*su.const_args, *su.carry0)
+    ref = plain(*su.const_args, *su.carry0)
+    up = lambda ts: [t.double() for t in ts]
+    ref64 = plain(*up(su.const_args), *up(su.carry0))
+    for name, g, r, r64 in zip(NAMES, got, ref, ref64):
+        e_kernel = (g.double() - r64).abs().max().item()
+        e_plain = (r.double() - r64).abs().max().item()
+        assert e_kernel <= 2 * e_plain + 1e-6 * r64.abs().max().item(), name
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    su, _ = _setup(torch.float64, cuda_device)
+    args = list(su.const_args) + list(su.carry0)
+    bad_shape = args.copy()
+    bad_shape[0] = args[0][:-1]                              # Qx2 missing a stage
+    bad_dtype = args.copy()
+    bad_dtype[len(tpl.CONST_ORDER)] = args[len(tpl.CONST_ORDER)].float()
+    strided = args.copy()
+    strided[1] = args[1].transpose(0, 1).contiguous().transpose(0, 1)   # qx, not contiguous
+    cpu_const = args.copy()
+    cpu_const[0] = args[0].cpu()
+    before = tpl.KERNEL.launches
+    for bad in (bad_shape, bad_dtype, strided, cpu_const):
+        with pytest.raises(ValueError):
+            su.step_fn(*bad)
+    assert tpl.KERNEL.launches == before

@@ -1,0 +1,80 @@
+"""The port stands alone: no file of ``belief_planning_tpu_torch`` (nor
+``chip_smoke.py``) imports ``jax``, ``jaxlib`` or ``belief_planning_tpu``;
+importing the package loads no jax; and its entry point runs on CUDA unless
+the caller asks for the CPU."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "belief_planning_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "belief_planning_tpu"}
+
+torch.set_num_threads(1)
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    assert not (_imported_roots(path) & FORBIDDEN)
+
+
+def test_import_loads_no_jax():
+    mods = sorted("belief_planning_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
+                  for p in PKG.rglob("*.py") if p.name != "__init__.py")
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'belief_planning_tpu')]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def _factory_args():
+    from belief_planning_tpu_torch.models.policies import highway_policy_set
+    from belief_planning_tpu_torch.models.predictive import highway_model
+    from belief_planning_tpu_torch.presets import init_branch_mpc
+    from belief_planning_tpu_torch.utils.config import BranchConstants
+
+    cons = BranchConstants()
+    xRef = np.array([0.5, 1.8, 15.0, 0.0])
+    model = highway_model(cons, highway_policy_set(cons, xRef), N=3, dt=0.1)
+    return model, init_branch_mpc(4, 2, 3, 1, xRef, am=6.0, rm=0.3, N_lane=4, W=cons.W)
+
+
+def test_entry_point_defaults_to_cuda():
+    from belief_planning_tpu_torch.controllers.branch_mpc import make_branch_mpc_batched_step
+
+    model, params = _factory_args()
+    if torch.cuda.is_available():
+        _, init, _ = make_branch_mpc_batched_step(model, params)
+        assert init(2).u_lin.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_branch_mpc_batched_step(model, params)
+    _, init, _ = make_branch_mpc_batched_step(model, params, device="cpu")
+    assert init(2).u_lin.device.type == "cpu"
