@@ -1,0 +1,139 @@
+"""Batched nested-CVaR branch-MPC controller (the reference package's
+``controllers/cvar_mpc.py``, batch-last step).
+
+One receding-horizon step over a batch of independent trees: warm-start
+shift → tree build → fused CVaR IPM in the batch-last layout (the CUDA
+kernel on the card) → optional f64 restart. With ``use_S`` the merge
+deployment's per-lane shear transform ``S`` and lane bounds ``bx`` ride the
+same kernel as per-lane constants.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+from torch.profiler import record_function
+
+from belief_planning_tpu_torch.controllers.branch_mpc import MPCCarry, _cast, resolve_device
+from belief_planning_tpu_torch.models.policies import cast_params
+from belief_planning_tpu_torch.models.predictive import PredictiveModel
+from belief_planning_tpu_torch.solvers.cvar import build_cvar_plan
+from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig
+from belief_planning_tpu_torch.solvers.cvar_pl import cvar_ipm_solve_pl
+from belief_planning_tpu_torch.solvers.layout import _from_bl, _to_bl
+from belief_planning_tpu_torch.tree.engine import build_tree, shift_warm_start
+from belief_planning_tpu_torch.tree.topology import build_topology
+from belief_planning_tpu_torch.utils.config import BranchMPCParams
+
+
+class CVaRSolveResult(NamedTuple):
+    xPred: Any        # (Bt, totalx, n)
+    uPred: Any        # (Bt, totalu, d)
+    slack: Any        # (Bt, totalu, Nc)
+    risk: Any         # (Bt, nrisk) [ρ; σ; μ⁺; μ⁻]
+    w: Any            # (Bt, nbr) branch weights
+    p: Any            # (Bt, nbr, m)
+    z: Any            # (Bt, totalu, n) obstacle nodes
+    J: Any            # (Bt,) objective
+    gap: Any          # (Bt,) duality gap of the returned iterate
+
+
+def make_cvar_mpc_batched_step(
+    model: PredictiveModel,
+    params: BranchMPCParams,
+    ralpha: float,
+    ipm: CVaRIPMConfig = CVaRIPMConfig(iters=40),
+    replicate_quirks: bool = True,
+    use_S: bool = False,
+    prep_dtype=None,
+    refine_f64: int = 0,
+    refine_cfg: Optional[CVaRIPMConfig] = None,
+    solve_dtype=None,
+    device=None,
+):
+    """Build ``(topo, cplan, init_carry, step)`` for a batch of independent
+    trees.
+
+    ``step(carrys, xs, zs, xRefs, policy_params, S=None, bx=None) ->
+    (carrys, CVaRSolveResult)`` takes batch-leading tensors (``xs (Bt, n)``)
+    and policy params shared by all lanes. With ``use_S``, ``S (Bt, n, n)``
+    is the per-lane state transform and ``bx (Bt, nFx)`` the per-lane state
+    bounds. The dh[0] floor of the transform applies only to lanes that are
+    warm (``carry.initialized``), as in the reference.
+
+    ``device``: ``None`` = ``"cuda"`` (raises without CUDA); pass ``"cpu"``
+    to run on the CPU. ``prep_dtype``: optional wider dtype for the tree
+    build. ``solve_dtype``: dtype of the fused solve (default: the input's).
+
+    ``refine_f64``: f64 restart iterations after the solve, warm-started
+    from its x, u, s and r with fresh duals on f64-built data (implies
+    ``prep_dtype=float64``). The default restart config flips the Gondzio
+    pattern (4 correctors, or 2 if the solve used 4). The restart runs
+    through the same kernel in double on the card.
+    """
+    dev = resolve_device(device)
+    topo = build_topology(params.N, params.NB, model.m, params.n, params.d)
+    cplan = build_cvar_plan(topo, replicate_quirks=replicate_quirks)
+    if refine_f64 > 0 and prep_dtype is None:
+        prep_dtype = torch.float64
+    rcfg = refine_cfg if refine_cfg is not None else CVaRIPMConfig(
+        iters=refine_f64, gondzio=4 if ipm.gondzio != 4 else 2)
+
+    def init_carry(batch: int, dtype=torch.float32) -> MPCCarry:
+        z = lambda *shape: torch.zeros((batch,) + shape, dtype=dtype, device=dev)
+        return MPCCarry(
+            u_lin=z(topo.totalu, params.d), p=z(topo.n_branches, topo.m),
+            old_input=z(params.d),
+            initialized=torch.zeros(batch, dtype=torch.bool, device=dev))
+
+    def prep(carry: MPCCarry, x, z, policy_params):
+        pd = prep_dtype if prep_dtype is not None else x.dtype
+        u_lin = torch.where(carry.initialized[:, None, None],
+                            shift_warm_start(topo, carry.u_lin, carry.p),
+                            torch.zeros_like(carry.u_lin))
+        return build_tree(model, topo, x.to(pd), z.to(pd), u_lin.to(pd),
+                          cast_params(policy_params, pd, dev))
+
+    def solve(ts, dtype, xRefs, S, bx, floor, cfg, x_warm=None, u_warm=None, s_warm=None,
+              r_warm=None):
+        ts = _cast(ts, dtype)
+        S_bl = _to_bl(S.to(dtype)) if (use_S and S is not None) else None
+        bx_used = params.bx if bx is None else _to_bl(bx.to(dtype))
+        return cvar_ipm_solve_pl(
+            cplan, _to_bl(ts.A), _to_bl(ts.Bm), _to_bl(ts.dh), _to_bl(ts.h0),
+            _to_bl(ts.x_lin) if x_warm is None else x_warm,
+            _to_bl(ts.u_lin) if u_warm is None else u_warm,
+            _to_bl(ts.p), params.Q, params.R, params.Qslack, _to_bl(xRefs.to(dtype)), ralpha,
+            params.Fx, bx_used, params.Fu, params.bu, cfg=cfg, S_bl=S_bl,
+            s_warm_bl=s_warm, r_warm_bl=r_warm, dh0_floor=floor)
+
+    def step(carrys: MPCCarry, xs, zs, xRefs, policy_params, S=None, bx=None):
+        dt_in = xs.dtype
+        sd = solve_dtype if solve_dtype is not None else dt_in
+        # profiler spans (bp.prep / bp.solve / bp.refine_f64): the per-layer
+        # times of a step under torch.profiler; near-free when it is off
+        with record_function("bp.prep"):
+            ts_p = prep(carrys, xs, zs, policy_params)
+        ts_b = _cast(ts_p, sd)
+        floor = carrys.initialized
+        with record_function("bp.solve"):
+            x_bl, u_bl, s_bl, r_bl, aux = solve(ts_b, sd, xRefs, S, bx, floor, ipm)
+        if refine_f64 > 0:
+            f64 = torch.float64
+            with record_function("bp.refine_f64"):
+                x_bl, u_bl, s_bl, r_bl, aux2 = solve(
+                    ts_p, f64, xRefs, S, bx, floor, rcfg, x_warm=x_bl.to(f64),
+                    u_warm=u_bl.to(f64), s_warm=s_bl.to(f64), r_warm=r_bl.to(f64))
+            aux = {**aux, "J": aux2["J"], "gap": aux2["gap"]}
+        u_f = _from_bl(u_bl).to(dt_in)
+        new_carry = MPCCarry(
+            u_lin=u_f, p=ts_b.p.to(dt_in), old_input=u_f[:, 0].clone(),
+            initialized=torch.ones(u_f.shape[0], dtype=torch.bool, device=u_f.device))
+        res = CVaRSolveResult(
+            xPred=_from_bl(x_bl).to(dt_in), uPred=u_f, slack=_from_bl(s_bl).to(dt_in),
+            risk=_from_bl(r_bl).to(dt_in), w=ts_b.w, p=ts_b.p, z=ts_b.z,
+            J=aux["J"].to(dt_in), gap=aux["gap"].to(dt_in))
+        return new_carry, res
+
+    return topo, cplan, init_carry, step

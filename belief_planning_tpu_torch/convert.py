@@ -1,10 +1,12 @@
 """Carry parameters over from the JAX package's objects to this package's.
 
-The JAX package's ``BranchMPCParams`` / ``BranchConstants`` hold numpy arrays
-and floats, and its highway policy params are NamedTuples (``MaintainParams``,
-``BrakeParams``, ``LaneChangeParams``) of arrays. These functions read them
-by field name (this package imports nothing of the JAX package) and return
-this package's equivalents, so both packages compute from identical numbers.
+The JAX package's ``BranchMPCParams`` / ``BranchConstants`` /
+``CVaRIPMConfig`` hold numpy arrays, floats and ints, and its policy params
+are NamedTuples (``MaintainParams``, ``MaintainTrackVParams``,
+``BrakeParams``, ``LaneChangeParams``) of arrays, some with a reference line
+(``RefLine``) in ``psiref``. These functions read them by field name (this
+package imports nothing of the JAX package) and return this package's
+equivalents, so both packages compute from identical numbers.
 """
 
 from __future__ import annotations
@@ -18,11 +20,15 @@ from belief_planning_tpu_torch.models.policies import (
     BrakeParams,
     LaneChangeParams,
     MaintainParams,
+    MaintainTrackVParams,
+    RefLine,
 )
+from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig
 from belief_planning_tpu_torch.utils.config import BranchConstants, BranchMPCParams
 
 _POLICY_PARAMS = {
     "MaintainParams": MaintainParams,
+    "MaintainTrackVParams": MaintainTrackVParams,
     "BrakeParams": BrakeParams,
     "LaneChangeParams": LaneChangeParams,
 }
@@ -43,19 +49,36 @@ def convert_mpc_params(params) -> BranchMPCParams:
     return BranchMPCParams(**kw)
 
 
+def convert_cvar_ipm_config(cfg) -> CVaRIPMConfig:
+    """A ``CVaRIPMConfig``-like dataclass → this package's ``CVaRIPMConfig``."""
+    return CVaRIPMConfig(**{f.name: getattr(cfg, f.name)
+                            for f in dataclasses.fields(CVaRIPMConfig)})
+
+
+def convert_ref_line(line, device, dtype=torch.float64) -> RefLine:
+    """A ``RefLine``-like (xs, ys) table → this package's ``RefLine``."""
+    return RefLine(*(torch.as_tensor(np.array(v), dtype=dtype, device=device)
+                     for v in (line.xs, line.ys)))
+
+
 def convert_policy_params(policy_params, device, dtype=torch.float64):
-    """A tuple of the JAX package's highway policy NamedTuples → this
-    package's NamedTuples of tensors on ``device`` in ``dtype``."""
+    """A tuple of the JAX package's policy NamedTuples → this package's
+    NamedTuples of tensors on ``device`` in ``dtype`` (a ``psiref`` becomes
+    this package's ``RefLine``)."""
     out = []
     for p in policy_params:
         cls = _POLICY_PARAMS.get(type(p).__name__)
         if cls is None:
             raise TypeError(f"no counterpart for policy params {type(p).__name__}")
         fields = p._asdict()
-        if fields.get("psiref") is not None:
-            raise NotImplementedError("reference-line (psiref) policies are not ported")
-        out.append(cls(*(torch.as_tensor(np.array(fields[name]), dtype=dtype,
-                                         device=device) for name in cls._fields)))
+        vals = []
+        for name in cls._fields:
+            v = fields.get(name)
+            if name == "psiref":
+                vals.append(None if v is None else convert_ref_line(v, device, dtype))
+            else:
+                vals.append(torch.as_tensor(np.array(v), dtype=dtype, device=device))
+        out.append(cls(*vals))
     return tuple(out)
 
 

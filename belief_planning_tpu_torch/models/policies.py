@@ -1,43 +1,94 @@
-"""Highway backup policies ``u = policy(x, params)`` (the reference package's
-``models/policies.py``, highway set).
+"""Backup policies ``u = policy(x, params)`` (the reference package's
+``models/policies.py``: the highway set and the merge set).
 
 Parameters are NamedTuples of tensors or floats, passed at call time. The
-reference-line (``psiref``) variants belong to the merge scenario and are not
-part of this package yet.
+merge scenario's policies may carry a reference line (``psiref``, a
+:class:`RefLine` lookup table) and then steer toward its heading.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from belief_planning_tpu_torch.ops.softmath import softmax_pair
 
 
+class RefLine(NamedTuple):
+    """Piecewise-linear lookup table (merge ramp): ``jnp.interp`` semantics,
+    constant beyond the end knots, on tensors of any shape."""
+
+    xs: Any  # (K,) knot X coordinates (ascending)
+    ys: Any  # (K,) values (Y or psi)
+
+    def __call__(self, x):
+        xs = torch.as_tensor(self.xs, dtype=x.dtype, device=x.device)
+        ys = torch.as_tensor(self.ys, dtype=x.dtype, device=x.device)
+        flat = x.reshape(-1)
+        i = torch.clamp(torch.searchsorted(xs, flat.contiguous(), right=True), 1,
+                        xs.shape[0] - 1)
+        x0, y0 = xs[i - 1].reshape(x.shape), ys[i - 1].reshape(x.shape)
+        dx, dy = xs[i].reshape(x.shape) - x0, ys[i].reshape(x.shape) - y0
+        # a (near-)repeated knot takes the left value, as jnp.interp does
+        dx0 = torch.abs(dx) <= _spacing_eps(x.dtype)
+        f = torch.where(dx0, y0, y0 + ((x - x0) / torch.where(dx0, torch.ones_like(dx), dx)) * dy)
+        f = torch.where(x < xs[0], ys[0], f)
+        return torch.where(x > xs[-1], ys[-1], f)
+
+
+def _spacing_eps(dtype):
+    """``np.spacing(finfo(dtype).eps)``, jnp.interp's repeated-knot test."""
+    return float(np.spacing(np.finfo(str(dtype).split(".")[-1]).eps))
+
+
+def _psi0(x, psiref):
+    """The reference line's heading at ``x``'s X, or 0 without a line."""
+    return psiref(x[..., 0]) if psiref is not None else torch.zeros_like(x[..., 0])
+
+
 class MaintainParams(NamedTuple):
     Kpsi: Any
+    psiref: Optional[RefLine] = None
 
 
 def maintain(x, p: MaintainParams):
-    """Hold speed, P-control heading to 0."""
-    return torch.stack([torch.zeros_like(x[..., 0]), -p.Kpsi * x[..., 3]], dim=-1)
+    """Hold speed, P-control heading to 0 (or to the ref line's heading)."""
+    return torch.stack([torch.zeros_like(x[..., 0]), _psi0(x, p.psiref) - p.Kpsi * x[..., 3]],
+                       dim=-1)
+
+
+class MaintainTrackVParams(NamedTuple):
+    Kpsi: Any
+    v0: Any
+    psiref: Optional[RefLine] = None
+
+
+def maintain_track_v(x, p: MaintainTrackVParams):
+    """Track speed ``v0`` with gain 0.5, P-control heading."""
+    return torch.stack([0.5 * (p.v0 - x[..., 2]), _psi0(x, p.psiref) - p.Kpsi * x[..., 3]],
+                       dim=-1)
 
 
 class BrakeParams(NamedTuple):
     Kpsi: Any
     a_brake: Any   # -7 on the MPC path, -5 in the simulator
     gamma: Any     # 5 on the MPC path, 3 in the simulator
+    psiref: Optional[RefLine] = None
 
 
 def brake(x, p: BrakeParams):
     """Smooth brake ``a = softmax_pair(a_brake, −v; γ)``, P-control heading."""
     a = softmax_pair(p.a_brake, -x[..., 2], p.gamma)
-    return torch.stack([a, -p.Kpsi * x[..., 3]], dim=-1)
+    return torch.stack([a, _psi0(x, p.psiref) - p.Kpsi * x[..., 3]], dim=-1)
 
 
-def brake_params_mpc(Kpsi) -> BrakeParams:
-    """Constants of the reference's symbolic (MPC) path."""
+def brake_params_mpc(Kpsi, psiref=None) -> BrakeParams:
+    """Constants of the reference's symbolic (MPC) path; with a ref line that
+    path uses the simulator's (-5, 3)."""
+    if psiref is not None:
+        return BrakeParams(Kpsi=Kpsi, a_brake=-5.0, gamma=3.0, psiref=psiref)
     return BrakeParams(Kpsi=Kpsi, a_brake=-7.0, gamma=5.0)
 
 
@@ -80,9 +131,22 @@ def highway_policy_set(cons, x_target) -> PolicySet:
     )
 
 
+def merge_policy_set(cons, v0, psiref: Optional[RefLine]) -> PolicySet:
+    """The merge demo's [maintain_trackV, brake] set."""
+    return PolicySet(
+        fns=(maintain_track_v, brake),
+        params=(MaintainTrackVParams(Kpsi=cons.Kpsi, v0=v0, psiref=psiref),
+                brake_params_mpc(cons.Kpsi, psiref=psiref)),
+    )
+
+
 def cast_params(params, dtype, device):
     """Every leaf of a tuple of policy NamedTuples as a tensor of ``dtype`` on
-    ``device``."""
-    return tuple(
-        type(p)(*(torch.as_tensor(v, dtype=dtype, device=device) for v in p))
-        for p in params)
+    ``device`` (a ``None`` ref line stays ``None``)."""
+    def leaf(v):
+        if v is None:
+            return None
+        if isinstance(v, RefLine):
+            return RefLine(*(torch.as_tensor(a, dtype=dtype, device=device) for a in v))
+        return torch.as_tensor(v, dtype=dtype, device=device)
+    return tuple(type(p)(*(leaf(v) for v in p)) for p in params)

@@ -1,6 +1,6 @@
 """Predictive model: dynamics, backup rollouts, branch probabilities and the
-collision constraint (the reference package's ``models/predictive.py``,
-highway model).
+collision constraint (the reference package's ``models/predictive.py``:
+the highway and merge models).
 
 Functions take states with optional leading batch dimensions; the Jacobians
 (``branch_eval``'s ``dp``, ``col_raw``'s ``dh``) are per-sample
@@ -128,6 +128,25 @@ def highway_model(cons, pset: PolicySet, N: int, dt: float, N_lane: int = 3) -> 
 
     def pair_h(x, z):
         return safety.veh_col(x, z, size_h, alpha=1.0)
+
+    return PredictiveModel(
+        dyn=dubins, n=4, d=2, N=N, dt=dt, policy_fns=pset.fns,
+        bf_traj=bf_traj, pair_h=pair_h,
+        prob_from_h=partial(_branch_prob_softsat, s1=cons.s1),
+    )
+
+
+def merge_model(cons, pset: PolicySet, N: int, dt: float) -> PredictiveModel:
+    """Merge-lane model: trajectory safety is vehicle collision only (size
+    ``[L+1, W+0.2]``, no lane rows, softmin γ=5); the ref-line lookup lives
+    in the policy params (``RefLine``)."""
+    size = (cons.L + 1.0, cons.W + 0.2)
+
+    def bf_traj(obs_traj, ego_traj):
+        return softmin(safety.veh_col(obs_traj, ego_traj, size, alpha=1.0), 5.0, axis=-1)
+
+    def pair_h(x, z):
+        return safety.veh_col(x, z, size, alpha=1.0)
 
     return PredictiveModel(
         dyn=dubins, n=4, d=2, N=N, dt=dt, policy_fns=pset.fns,

@@ -79,6 +79,21 @@ def _xblk(a, m: LevelMeta):
     return a[m.x0:m.x1].reshape((m.nb, m.lx) + a.shape[1:])
 
 
+def _cx_gather(levels, x_f):
+    """x at the constrained nodes: flat (totalx, n, ..., T) → (totalu, n, ..., T)."""
+    return torch.cat([_xblk(x_f, mt)[:, :mt.l].reshape((mt.nb * mt.l,) + x_f.shape[1:])
+                      for mt in levels], dim=0)
+
+
+def _succ_transitions(plan: StagePlan, A_bl, B_bl):
+    """Per-stage transitions into each stage's successor node (flat stage
+    order: level-major, branch-major, step-ascending)."""
+    sx_all = np.zeros(plan.topo.totalu, dtype=np.int64)
+    for k in range(plan.topo.NB + 1):
+        sx_all[plan.stage_idx[k].T.reshape(-1)] = plan.succ_x_idx[k].T.reshape(-1)
+    return A_bl[sx_all].contiguous(), B_bl[sx_all].contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Small-matrix helpers on batch-last blocks (nb, i, j, T)
 # ---------------------------------------------------------------------------
@@ -258,9 +273,7 @@ def make_iteration(plan: StagePlan, cfg: QPIPMConfig, nFx: int, nFu: int,
     levels = build_levels(plan)
 
     def cx_gather(x_f):
-        """x at the constrained nodes (totalu, n, T) from flat x (totalx, n, T)."""
-        return torch.cat([_xblk(x_f, mt)[:, :mt.l].reshape(mt.nb * mt.l, n, -1)
-                          for mt in levels], dim=0)
+        return _cx_gather(levels, x_f)
 
     def term_gather(x_f):
         mt = levels[-1]
@@ -580,15 +593,11 @@ def fused_iteration(plan: StagePlan, cfg: QPIPMConfig, nFx: int, nFu: int,
 
 def _prep_consts(plan: StagePlan, cost: StageCost, A_bl, B_bl, dh_bl, h0_bl,
                  Fx, bx, Fu, bu):
-    """Per-stage successor transitions + b1 assembly; ``cost`` is batch-last.
-    Flat stage order is level-major, branch-major, step-ascending."""
-    topo = plan.topo
+    """Per-stage successor transitions + b1 assembly; ``cost`` is batch-last."""
     dtype, dev = A_bl.dtype, A_bl.device
-    totalu = topo.totalu
+    totalu = plan.topo.totalu
     nFx = np.asarray(Fx).shape[0]
-    sx_all = np.zeros(totalu, dtype=np.int64)
-    for k in range(topo.NB + 1):
-        sx_all[plan.stage_idx[k].T.reshape(-1)] = plan.succ_x_idx[k].T.reshape(-1)
+    A_st, B_st = _succ_transitions(plan, A_bl, B_bl)
     as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
     Z = h0_bl.shape[-1]
     b1 = torch.cat([h0_bl[:, None, :],
@@ -597,7 +606,7 @@ def _prep_consts(plan: StagePlan, cost: StageCost, A_bl, B_bl, dh_bl, h0_bl,
         Qx2=cost.Qx2, qx=cost.qx, Ru2=cost.Ru2, qu=cost.qu, Dab2=cost.Dab2,
         qterm=cost.qterm, Pterm2=cost.Pterm2, slack_lin=cost.slack_lin,
         slack_quad=torch.as_tensor(cost.slack_quad, dtype=dtype, device=dev).reshape(1, -1),
-        A_st=A_bl[sx_all].contiguous(), B_st=B_bl[sx_all].contiguous(),
+        A_st=A_st, B_st=B_st,
         dh=dh_bl, b1=b1.contiguous(),
         Fx=as_t(Fx).contiguous(), Fu=as_t(Fu).contiguous(),
         bu=as_t(bu).reshape(1, -1).contiguous(),
@@ -644,8 +653,7 @@ def setup_ipm(plan: StagePlan, cost: StageCost, A_bl, B_bl, dh_bl, h0_bl,
     levels = build_levels(plan)
 
     def cx_gather(x_f):
-        return torch.cat([_xblk(x_f, mt)[:, :mt.l].reshape(mt.nb * mt.l, n, -1)
-                          for mt in levels], dim=0)
+        return _cx_gather(levels, x_f)
 
     x_i, u_i = x_warm_bl.contiguous(), u_warm_bl.contiguous()
     if s_warm_bl is None:

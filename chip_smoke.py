@@ -25,7 +25,25 @@ Phases, one JSON line each:
    the tests hold against the JAX package) at B=64;
 4. the f64 restart (``refine_f64=10``) at B=256, which runs the double
    kernel on the path;
-5. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
+5. the CVaR slice (``make_cvar_mpc_batched_step``, kernel
+   ``csrc/cvar_ipm_iter.cu``) at two configurations, IPM-24 with 2 Gondzio
+   correctors, f32: the merge deployment (N=40, NB=1, m=2, per-lane ramp
+   shear S and bounds bx, worlds drawn as the reference's ``init_worlds``)
+   and the CVaR overtake (N=8, NB=2, m=3, ``bench_cvar.py``'s states):
+   ``build_cvar`` (nvcc, ptxas report); ``cvar_kernel_vs_plain`` (one
+   iteration in f64 at B=1024, at the first and the fifth iteration, bar
+   1e-10 of each field's magnitude; one in f32 at B=32768 with the accuracy
+   bar); ``cvar_main_path`` per configuration (solves/s at B=32768 over 5
+   warm-started steps, 24 launches a step, gap p50 / max, one profiled
+   step; for the merge also p50 step ms at B=256 against 100 ms);
+   ``cvar_main_path_vs_cpu`` (the merge in f64 at B=64 on the card and on
+   the CPU: two steps' |Δu| |Δx|, and the first 10 gaps of one solve to
+   rtol 1e-8, atol 1e-10); ``cvar_refine_f64`` (the merge at B=256 with an
+   8-iteration f64 restart through the double kernel);
+6. the ``kernels`` line (both kernels), the ``nvidia-smi`` line, and the
+   result line.
+
+Both kernels are built at the start, in parallel (one nvcc each).
 
 Any failed check raises and the script exits non-zero. It needs one card,
 and exits non-zero without printing a result when CUDA is unavailable or the
@@ -38,6 +56,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -171,6 +190,117 @@ def iteration_flops(plan, nFx, nFu, gondzio, lanes):
     return per_stage * U * lanes
 
 
+# ---- the CVaR slice ----------------------------------------------------------
+
+CVAR_CONFIGS = ("cvar_merge", "cvar_overtake")
+
+
+def cvar_config(name):
+    """``(model, params, pset, cons, ralpha, use_S)`` of a CVaR configuration:
+    the merge deployment (``examples/main_branch.py:50-75``,
+    ``scripts/bench_ensemble.py:66-80``) or the CVaR overtake
+    (``scripts/bench_cvar.py:40-90``)."""
+    from belief_planning_tpu_torch.models.policies import merge_policy_set
+    from belief_planning_tpu_torch.models.predictive import merge_model
+    from belief_planning_tpu_torch.presets import init_branch_mpc
+    from belief_planning_tpu_torch.utils.config import BranchConstants
+
+    if name == "cvar_merge":
+        cons = BranchConstants(am=7.0)
+        pset = merge_policy_set(cons, 20.0, None)
+        model = merge_model(cons, pset, N=40, dt=0.1)
+        params = init_branch_mpc(n, d, 40, 1, np.array([0.5, 1.8, 15.0, 0.0]), am=7.0, rm=0.3,
+                                 N_lane=2, W=cons.W)
+        return model, params, pset, cons, 0.1, True
+    pset, model, params = overtake_setup()
+    return model, params, pset, None, 0.9, False
+
+
+def cvar_states(name, B, dev, dtype, seed=0):
+    """``(xs, zs, xRefs, S, bx)`` on ``dev``: merge worlds drawn as the
+    reference's ``init_worlds`` with their per-lane ramp inputs, or the CVaR
+    bench's overtake states (S, bx None)."""
+    from belief_planning_tpu_torch.envs.batched_merge import draw_merge_worlds, merge_lane_inputs
+
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    if name == "cvar_merge":
+        _, params, _, cons, _, _ = cvar_config(name)
+        x0, z0 = draw_merge_worlds(B, seed)
+        _, S, xRefs, bx = merge_lane_inputs(t(x0), torch.zeros(B, dtype=torch.bool, device=dev),
+                                            params.bx, cons.W)
+        return t(x0), t(z0), xRefs, S, bx
+    xs, zs, xRefs = bench_states(B, seed)
+    return t(xs), t(zs), t(xRefs), None, None
+
+
+def cvar_case(name, dev, B, dtype, cfg, floor_mixed=True):
+    """The fused CVaR solve's real inputs: tree build in f64 on ``dev`` from
+    a cold start, cast to ``dtype``, then the solver's setup (merge: per-lane
+    S and bx, the dh[0] floor on every other lane)."""
+    from belief_planning_tpu_torch.models.policies import cast_params
+    from belief_planning_tpu_torch.solvers import cvar_pl
+    from belief_planning_tpu_torch.solvers.cvar import build_cvar_plan
+    from belief_planning_tpu_torch.solvers.layout import _to_bl
+    from belief_planning_tpu_torch.tree.engine import build_tree
+    from belief_planning_tpu_torch.tree.topology import build_topology
+
+    model, params, pset, _, ralpha, use_S = cvar_config(name)
+    topo = build_topology(params.N, params.NB, model.m, n, d)
+    cplan = build_cvar_plan(topo)
+    f64 = torch.float64
+    xs, zs, xRefs, S, bx = cvar_states(name, B, dev, f64)
+    ts = build_tree(model, topo, xs, zs, torch.zeros(B, topo.totalu, d, dtype=f64, device=dev),
+                    cast_params(pset.params, f64, dev))
+    bl = lambda a: _to_bl(a.to(dtype))
+    floor = (torch.arange(B, device=dev) % 2 == 0) if (use_S and floor_mixed) else None
+    su = cvar_pl.setup_cvar_ipm(
+        cplan, bl(ts.A), bl(ts.Bm), bl(ts.dh), bl(ts.h0), bl(ts.x_lin), bl(ts.u_lin), bl(ts.p),
+        params.Q, params.R, params.Qslack, bl(xRefs), ralpha, params.Fx,
+        params.bx if bx is None else bl(bx), params.Fu, params.bu, cfg,
+        S_bl=bl(S) if use_S else None, dh0_floor=floor)
+    return cplan, su, cvar_pl.make_cvar_iteration(cplan, cfg, su.dims)
+
+
+def cvar_iteration_bytes(su):
+    """Least traffic of one CVaR iteration: each constant read once (the
+    shared ones once for all lanes), the carry read and written once, the
+    gap written once."""
+    elems = sum(c.numel() for c in su.in_args) + 2 * sum(c.numel() for c in su.carry0)
+    elems += su.carry0[0].shape[-1]
+    return elems * su.carry0[0].element_size()
+
+
+def cvar_iteration_flops(cplan, dims, gondzio, lanes):
+    """Floating-point operations of one CVaR iteration, counted from the
+    kernel's loops (multiply-add = 2; +, -, ×, ÷, sqrt = 1; comparisons
+    not counted), per lane, times the lanes. Data-independent: every
+    corrector candidate is computed whether or not a lane accepts it."""
+    topo = cplan.plan.topo
+    U, X, nbr = topo.totalu, topo.totalx, topo.n_branches
+    K, R, m = dims["K"], dims["K"] + 1, dims["m"]
+    nrisk, nsgn, bdim = dims["nrisk"], dims["nsgn"], dims["bdim"]
+    a = 2 + m
+    carry = X * 4 + U * (2 + 5 + 5 + 5 + 4 + 4 + 5 + 5) + nrisk + 2 * nsgn + 2 * K
+    pairs = U * (5 + 4 + 5) + nsgn + K                     # complementarity pairs
+    residuals = U * (208 + 88) + nsgn * (2 * nrisk + 4) + K * (2 * U + 2 * nrisk + 8) \
+        + U * 3 * K + nrisk * (4 * nsgn + 3 * K + 3)
+    factor = U * 1219 + (nbr - 1) * 36 * (m - 1)
+    risk_col = 2 * bdim * m + bdim * (6 + 4 * m + a * (5 * a + (a + 1) * (2 * a - 1)
+                                                        + (a + 1) + 2 * (a - 1) * (a + 1)))
+    h0_col = U * 341 + risk_col
+    gdot = U * 17 + K * (2 * U + 2 * nrisk + 2)
+    capacitance = K * K * 5 + 4 * K ** 3
+    wb = K * (3 * K + 4) + 2 * K * (X * 4 + U * 7 + nrisk)
+    finish = U * 131 + nsgn * (2 * nrisk + 5) + gdot + 5 * K
+    rhs = 5 * K + U * (150 + 2 * K) + nrisk * (7 * nsgn + 2 * K + 2)
+    n_single = 1 + gondzio
+    per_lane = (residuals + factor + R * (h0_col + 18 * U) + R * gdot + capacitance
+                + (2 + gondzio) * (wb + finish) + n_single * (rhs + h0_col + gdot) + rhs
+                + (2 + 2 * gondzio) * 2 * 2 * pairs + 3 * 6 * pairs + pairs * (1 + 4)
+                + gondzio * (10 * pairs + carry) + 2 * carry)
+    return per_lane * lanes
+
+
 def cuda_ms(fn, reps):
     """Mean milliseconds per call on the device (CUDA events, after a warm-up)."""
     fn()
@@ -195,6 +325,239 @@ def scaled_err(a_list, b_list, names):
     return out
 
 
+def profile_step(run):
+    """Where one warm-started step's time goes: ``run()`` under
+    torch.profiler; the ``bp.*`` spans, device busy time and idle share, the
+    top device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_device, spans = {}, {}
+    for e in prof.events():
+        ms = e.time_range.elapsed_us() / 1e3
+        if e.name.startswith("bp."):
+            kind = "cpu" if e.device_type == DeviceType.CPU else "device"
+            spans[f"{e.name}.{kind}_ms"] = spans.get(f"{e.name}.{kind}_ms", 0.0) + ms
+        elif e.device_type == DeviceType.CUDA:
+            n_, t_ = on_device.get(e.name, (0, 0.0))
+            on_device[e.name] = (n_ + 1, t_ + ms)
+    device_ms = sum(t for _, t in on_device.values())
+    top = sorted(on_device.items(), key=lambda kv: -kv[1][1])[:5]
+    return {"wall_ms_profiled": wall_ms, "device_busy_ms": device_ms,
+            "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
+            "device_ops": sum(n_ for n_, _ in on_device.values()), "spans": spans,
+            "top_device_ms": [[k[:70], t, n_] for k, (n_, t) in top]}
+
+
+def run_cvar_phases(dev, card, K2):
+    """The CVaR slice's phases; returns its ``kernels`` entry."""
+    from belief_planning_tpu_torch.controllers.cvar_mpc import make_cvar_mpc_batched_step
+    from belief_planning_tpu_torch.solvers import cvar_pl
+    from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig
+
+    cfg = CVaRIPMConfig(iters=24, gondzio=2)
+    names = cvar_pl.CARRY_ORDER + ["gap"]
+    f32, f64 = torch.float32, torch.float64
+
+    # ---- kernel vs plain version on the card ---------------------------------
+    def one_iteration(name, B, dtype, advance=0):
+        """One launch against the plain version: at the first iteration, or
+        after ``advance`` plain iterations with the index at early_iters (no
+        early step cap)."""
+        cplan, su, plain = cvar_case(name, dev, B, dtype, cfg)
+        carry = su.carry0
+        for itv in range(advance):    # a later carry of the same solve (plain steps)
+            carry = plain(*su.in_args, itv, *carry)[:cvar_pl.CARRY_FIELDS]
+        itv = cfg.early_iters if advance else 0
+        got = su.step_fn(*su.in_args, itv, *carry)
+        torch.cuda.synchronize()
+        ref = plain(*su.in_args, itv, *carry)
+        errs = scaled_err(got, ref, names)
+        worst = max(errs, key=lambda k: errs[k][0])
+        line = {"phase": "cvar_kernel_vs_plain", "config": name, "B": B,
+                "dtype": str(dtype)[6:], "iteration": advance + 1, "itv": itv,
+                "worst_field": worst,
+                "worst_scaled": errs[worst][0], "max_abs_err": max(e[1] for e in errs.values())}
+        if dtype == f64:
+            emit({**line, "tol_scaled": F64_TOL, **card})
+            if errs[worst][0] > F64_TOL:
+                raise AssertionError(f"CVaR kernel disagrees with its plain version: {worst} "
+                                     f"{errs[worst][0]:.3e} > {F64_TOL:.0e} ({name}, f64, B={B})")
+        else:
+            up = lambda ts: [t.double() for t in ts]
+            ref64 = plain(*up(su.in_args), itv, *up(carry))
+            acc = {}
+            for nm, g, r, r64 in zip(names, got, ref, ref64):
+                e_k = (g.double() - r64).abs().max().item()
+                e_p = (r.double() - r64).abs().max().item()
+                acc[nm] = (e_k, e_p, F32_ERR_RATIO * e_p + F32_FLOOR * r64.abs().max().item())
+            del ref64
+            bad = [nm for nm, (e_k, _, bar) in acc.items() if e_k > bar]
+            emit({**line, "err_vs_f64": {nm: {"kernel": v[0], "plain": v[1], "bar": v[2]}
+                                          for nm, v in acc.items()}, **card})
+            if bad:
+                raise AssertionError(f"f32 CVaR kernel less accurate than the plain version in "
+                                     f"{bad} ({name}, B={B})")
+        return cplan, su, plain, carry, max(e[1] for e in errs.values())
+
+    timing = {}
+    for name in CVAR_CONFIGS:
+        one_iteration(name, 1024, f64)
+        one_iteration(name, 1024, f64, advance=4)
+        cplan, su, plain, carry, err32 = one_iteration(name, BENCH_B, f32)
+        k_ms = cuda_ms(lambda: su.step_fn(*su.in_args, 0, *carry), reps=3)
+        plain_ms = cuda_ms(lambda: plain(*su.in_args, 0, *carry), reps=1)
+        nbytes = cvar_iteration_bytes(su)
+        flops = cvar_iteration_flops(cplan, su.dims, cfg.gondzio, BENCH_B)
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_FLOPS["float32"] * 1e3
+        bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        elems = K2.scratch_elems(cvar_pl.kernel_ints(cplan, cfg, su.dims))
+        timing[name] = dict(ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            max_abs_err=err32)
+        emit({"phase": "cvar_kernel_time", "config": name, "B": BENCH_B, "dtype": "float32",
+              "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+              "bytes": nbytes, "flops": flops, "bytes_ms": t_bytes, "flops_ms": t_ops,
+              "scratch_bytes_per_lane": elems * 4, **card})
+        del su, carry, plain
+        torch.cuda.empty_cache()
+
+    # ---- the main path, per configuration ------------------------------------
+    def drive(name, B, steps, stepper, init, pset, dtype=f32, device=dev):
+        xs, zs, xRefs, S, bx = cvar_states(name, B, device, dtype)
+        kw = {} if S is None else dict(S=S, bx=bx)
+        c = init(B, dtype)
+        c, res = stepper(c, xs, zs, xRefs, pset.params, **kw)     # warm-up step
+        _ = res.uPred.cpu()
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            _c, res = stepper(c, xs, zs, xRefs, pset.params, **kw)
+            _ = res.uPred.cpu()
+            times.append(time.perf_counter() - t0)
+        return res, times, (c, xs, zs, xRefs, kw)
+
+    steps = 5
+    main_launches = None
+    res256 = None
+    for name in CVAR_CONFIGS:
+        model, params, pset, _, ralpha, use_S = cvar_config(name)
+        topo, _, init, step = make_cvar_mpc_batched_step(model, params, ralpha, ipm=cfg,
+                                                         use_S=use_S)
+        K2.launches = 0
+        res, times, warm = drive(name, BENCH_B, steps, step, init, pset)
+        launches = K2.launches
+        u, gap = res.uPred, res.gap
+        finite = all(bool(t.isfinite().all()) for t in (res.xPred, u, res.slack, res.risk, gap))
+        shapes_ok = (tuple(u.shape) == (BENCH_B, topo.totalu, d)
+                     and tuple(res.xPred.shape) == (BENCH_B, topo.totalx, n))
+        med = float(np.median(times))
+        line = {"phase": "cvar_main_path", "config": name, "B": BENCH_B, "N": params.N,
+                "NB": params.NB, "m": model.m, "ipm_iters": cfg.iters, "gondzio": cfg.gondzio,
+                "dtype": "float32", "steps_timed": steps, "step_ms_median": med * 1e3,
+                "step_ms_all": [t * 1e3 for t in times], "solves_per_s": BENCH_B / med,
+                "launches": launches, "launches_expected": cfg.iters * (steps + 1),
+                "finite": finite, "shapes_ok": shapes_ok,
+                "gap_p50": float(gap.median()), "gap_max": float(gap.max()),
+                "max_abs_a": u[..., 0].abs().max().item(),
+                "max_abs_r": u[..., 1].abs().max().item()}
+        if name == "cvar_merge":
+            main_launches = launches
+            res256, times256, _ = drive(name, 256, 10, step, init, pset)
+            line["p50_ms_B256"] = float(np.median(times256)) * 1e3
+            line["p50_limit_ms"] = 100.0
+            line["gap_p50_B256"] = float(res256.gap.median())
+        emit({**line, **card})
+        if not (finite and shapes_ok):
+            raise AssertionError(f"{name} main path: non-finite outputs or wrong shapes")
+        if launches != cfg.iters * (steps + 1):
+            raise AssertionError(f"{name} main path: {launches} kernel launches, expected "
+                                 f"{cfg.iters * (steps + 1)}")
+        c, xs, zs, xRefs, kw = warm
+        for B_prof in (BENCH_B, 256):
+            if B_prof == 256:
+                if name != "cvar_merge":
+                    break
+                xs, zs, xRefs, S, bx = cvar_states(name, 256, dev, f32)
+                kw = {} if S is None else dict(S=S, bx=bx)
+                c, _ = step(init(256, f32), xs, zs, xRefs, pset.params, **kw)
+            out = profile_step(lambda: step(c, xs, zs, xRefs, pset.params, **kw)[1].uPred.cpu())
+            emit({"phase": "cvar_main_path_profile", "config": name, "B": B_prof, **out, **card})
+        del res, warm, c
+        torch.cuda.empty_cache()
+
+    # ---- the merge in f64 on the card against the CPU ---------------------------
+    name = "cvar_merge"
+    model, params, pset, _, ralpha, _ = cvar_config(name)
+    outs = {}
+    for where, dv in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        _, _, in_, st_ = make_cvar_mpc_batched_step(model, params, ralpha, ipm=cfg, use_S=True,
+                                                    device=dv)
+        xs, zs, xRefs, S, bx = cvar_states(name, 64, dv, f64)
+        c = in_(64, f64)
+        seq = []
+        for _ in range(2):
+            c, r = st_(c, xs, zs, xRefs, pset.params, S=S, bx=bx)
+            seq.append((r.uPred.cpu(), r.xPred.cpu()))
+        outs[where] = seq
+    du = max((a[0] - b[0]).abs().max().item() for a, b in zip(outs["cuda"], outs["cpu"]))
+    dx = max((a[1] - b[1]).abs().max().item() for a, b in zip(outs["cuda"], outs["cpu"]))
+    lanes_du = [int(((a[0] - b[0]).abs().amax((1, 2)) > 1e-7).sum())
+                for a, b in zip(outs["cuda"], outs["cpu"])]
+    # one solve of the same first-step data: the kernel on the card, the plain
+    # version on the CPU, from identical (CPU-built) constants and carry
+    cplan, su, _ = cvar_case(name, torch.device("cpu"), 64, f64, cfg, floor_mixed=False)
+    step_gpu = cvar_pl.fused_cvar_iteration(cplan, cfg, su.dims)
+    gaps = {}
+    for where, fn, to in (("cuda", step_gpu, lambda t: t.to(dev)),
+                          ("cpu", su.step_fn, lambda t: t)):
+        ia = [to(t) for t in su.in_args]
+        cy = tuple(to(t) for t in su.carry0)
+        g = []
+        for itv in range(cfg.iters):
+            out = fn(*ia, itv, *cy)
+            cy = out[:cvar_pl.CARRY_FIELDS]
+            g.append(out[cvar_pl.CARRY_FIELDS].reshape(-1).cpu())
+        gaps[where] = torch.stack(g)
+    g_gpu, g_cpu = gaps["cuda"][:10], gaps["cpu"][:10]
+    rel10 = ((g_gpu - g_cpu).abs() / g_cpu.abs()).max().item()
+    ok10 = bool(torch.allclose(g_gpu, g_cpu, rtol=1e-8, atol=1e-10))
+    rel_all = ((gaps["cuda"] - gaps["cpu"]).abs() / gaps["cpu"].abs()).amax(1).tolist()
+    emit({"phase": "cvar_main_path_vs_cpu", "config": name, "B": 64, "dtype": "float64",
+          "steps": 2, "max_abs_du": du, "max_abs_dx": dx, "lanes_du_over_1e-7": lanes_du,
+          "gaps_first10_max_rel": rel10,
+          "gaps_first10_ok": ok10, "gaps_max_rel_per_iter": rel_all, **card})
+    if not ok10:
+        raise AssertionError(f"CVaR f64 solve on the card vs CPU: first 10 gaps differ "
+                             f"(max rel {rel10:.3e})")
+
+    # ---- the f64 restart through the double kernel ------------------------------
+    _, _, init_r, step_r = make_cvar_mpc_batched_step(model, params, ralpha, ipm=cfg,
+                                                      use_S=True, refine_f64=8)
+    K2.launches = 0
+    res_r, times_r, _ = drive(name, 256, 1, step_r, init_r, pset)
+    finite_r = all(bool(t.isfinite().all()) for t in (res_r.uPred, res_r.xPred, res_r.gap))
+    emit({"phase": "cvar_refine_f64", "config": name, "B": 256, "refine_iters": 8,
+          "launches": K2.launches, "launches_expected": 2 * (cfg.iters + 8),
+          "finite": finite_r, "gap_p50": float(res_r.gap.median()),
+          "gap_p50_f32_only": float(res256.gap.median()), "step_ms": times_r[0] * 1e3, **card})
+    if K2.launches != 2 * (cfg.iters + 8) or not finite_r:
+        raise AssertionError("CVaR refine_f64 step: wrong launch count or non-finite output")
+
+    t = timing["cvar_merge"]
+    return {"name": "cvar_ipm_iter", "route": "cuda",
+            "source": "belief_planning_tpu_torch/csrc/cvar_ipm_iter.cu",
+            "replaces": "belief_planning_tpu/solvers/cvar_pl.py:1057",
+            "launches": main_launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -208,7 +571,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from belief_planning_tpu_torch.controllers.branch_mpc import make_branch_mpc_batched_step
-    from belief_planning_tpu_torch.solvers import tree_qp_pl
+    from belief_planning_tpu_torch.solvers import cvar_pl, tree_qp_pl
     from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
 
     t_start = time.perf_counter()
@@ -221,12 +584,34 @@ def main() -> int:
     emit({"phase": "device", **card, "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # ---- 1. build ---------------------------------------------------------
+    # ---- 1. build: both kernels, one nvcc each, started together -----------
     K = tree_qp_pl.KERNEL
-    K.load()
+    K2 = cvar_pl.KERNEL
+    errors = []
+
+    def build(kernel):
+        try:
+            kernel.load()
+        except Exception as e:          # re-raised below, on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(k,)) for k in (K, K2)]
+    t_build = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    build_wall = time.perf_counter() - t_build
+    if errors:
+        raise errors[0]
     ptxas = [ln.strip() for ln in K.build_log.splitlines()
              if "registers" in ln or "spill" in ln or "stack frame" in ln]
-    emit({"phase": "build", "seconds": round(K.build_seconds, 3), "ptxas": ptxas, **card})
+    emit({"phase": "build", "seconds": round(K.build_seconds, 3), "ptxas": ptxas,
+          "wall_seconds_both": round(build_wall, 3), **card})
+    ptxas2 = [ln.strip() for ln in K2.build_log.splitlines()
+              if "registers" in ln or "spill" in ln or "stack frame" in ln]
+    emit({"phase": "build_cvar", "seconds": round(K2.build_seconds, 3), "ptxas": ptxas2,
+          "wall_seconds_both": round(build_wall, 3), **card})
 
     # ---- 2. kernel vs plain version on the card ----------------------------
     cfg = QPIPMConfig(iters=8, gondzio=2)
@@ -381,34 +766,11 @@ def main() -> int:
     main_launches = launches
 
     # where a main-path step's time goes: one profiled warm-started step
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for B in (BENCH_B, 256):
         xs, zs, xRefs = (torch.as_tensor(a, dtype=f32, device=dev) for a in bench_states(B))
         carrys, _ = step(init_carry(B, f32), xs, zs, xRefs, pset.params)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            _, r = step(carrys, xs, zs, xRefs, pset.params)
-            _ = r.uPred.cpu()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        on_device, spans = {}, {}
-        for e in prof.events():
-            ms = e.time_range.elapsed_us() / 1e3
-            if e.name.startswith("bp."):
-                kind = "cpu" if e.device_type == DeviceType.CPU else "device"
-                spans[f"{e.name}.{kind}_ms"] = spans.get(f"{e.name}.{kind}_ms", 0.0) + ms
-            elif e.device_type == DeviceType.CUDA:
-                n_, t_ = on_device.get(e.name, (0, 0.0))
-                on_device[e.name] = (n_ + 1, t_ + ms)
-        device_ms = sum(t for _, t in on_device.values())
-        top = sorted(on_device.items(), key=lambda kv: -kv[1][1])[:5]
-        emit({"phase": "main_path_profile", "B": B, "wall_ms_profiled": wall_ms,
-              "device_busy_ms": device_ms,
-              "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
-              "device_ops": sum(n_ for n_, _ in on_device.values()), "spans": spans,
-              "top_device_ms": [[k[:70], t, n_] for k, (n_, t) in top], **card})
+        out = profile_step(lambda: step(carrys, xs, zs, xRefs, pset.params)[1].uPred.cpu())
+        emit({"phase": "main_path_profile", "B": B, **out, **card})
 
     # the f64 path on the card against the same steps on the CPU (plain version)
     f64 = torch.float64
@@ -445,7 +807,10 @@ def main() -> int:
     if K.launches != 2 * (ipm.iters + 10) or not bool(res_r.uPred.isfinite().all()):
         raise AssertionError("refine_f64 step: wrong launch count or non-finite output")
 
-    # ---- 5. kernels line, card line, result ------------------------------------
+    # ---- 5. the CVaR slice ----------------------------------------------------
+    cvar_lines = run_cvar_phases(dev, card, K2)
+
+    # ---- 6. kernels line, card line, result ------------------------------------
     emit({"kernels": [{
         "name": "tree_qp_ipm_iter",
         "route": "cuda",
@@ -458,7 +823,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]})
+    }, cvar_lines]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, **card})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

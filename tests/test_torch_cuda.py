@@ -1,19 +1,28 @@
-"""The CUDA kernel against its plain PyTorch version on the card, and the
-wrapper's checks. Needs a CUDA card (skips without one) and no JAX, so on a
-machine with the card and without JAX it runs on its own:
+"""The CUDA kernels against their plain PyTorch versions on the card, and
+the wrappers' checks. Needs a CUDA card (skips without one) and no JAX, so
+on a machine with the card and without JAX it runs on its own:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Also holds the JAX-free QP data builder that the other port tests share."""
+Also holds the JAX-free QP and CVaR data builders that the other port tests
+share."""
 
 import numpy as np
 import pytest
 import torch
 
-from belief_planning_tpu_torch.models.policies import cast_params, highway_policy_set
-from belief_planning_tpu_torch.models.predictive import highway_model
+from belief_planning_tpu_torch.envs.batched_merge import draw_merge_worlds, merge_lane_inputs
+from belief_planning_tpu_torch.models.policies import (
+    cast_params,
+    highway_policy_set,
+    merge_policy_set,
+)
+from belief_planning_tpu_torch.models.predictive import highway_model, merge_model
 from belief_planning_tpu_torch.presets import init_branch_mpc
+from belief_planning_tpu_torch.solvers import cvar_pl
 from belief_planning_tpu_torch.solvers import tree_qp_pl as tpl
+from belief_planning_tpu_torch.solvers.cvar import build_cvar_plan
+from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig
 from belief_planning_tpu_torch.solvers.layout import _to_bl, cost_to_bl
 from belief_planning_tpu_torch.solvers.tree_qp import assemble_stage_cost, build_stage_plan
 from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
@@ -53,6 +62,67 @@ def qp_data(dtype=torch.float64, device="cpu"):
     return params, build_stage_plan(topo), cost_to_bl(cost), \
         dict(A=bl(ts.A), Bm=bl(ts.Bm), C=bl(ts.C), dh=bl(ts.dh), h0=bl(ts.h0),
              x=bl(ts.x_lin), u=bl(ts.u_lin))
+
+
+CVAR_NAMES = cvar_pl.CARRY_ORDER + ["gap"]
+
+
+def cvar_problem(kind, N=3, NB=1, B=4, seed=0, device="cpu"):
+    """A small CVaR problem of either configuration, JAX-free, built in f64:
+    ``(params, cons, pset, model, ralpha, xs, zs, xRefs, S, bx, floor)``.
+
+    ``"merge"``: the merge deployment (m=2, ralpha=0.1), worlds drawn as the
+    reference's ``init_worlds``, per-lane shear ``S`` and bounds ``bx`` of
+    the ramp, and the dh[0] floor on every other lane. ``"overtake"``: the
+    CVaR overtake (m=3, ralpha=0.9), states drawn as ``bench_cvar.py``,
+    shared bounds and no transform."""
+    from belief_planning_tpu_torch.utils.config import BranchConstants
+
+    f64 = torch.float64
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=f64, device=device)
+    if kind == "merge":
+        cons = BranchConstants(am=7.0)
+        pset = merge_policy_set(cons, 20.0, None)
+        model = merge_model(cons, pset, N=N, dt=0.1)
+        params = init_branch_mpc(4, 2, N, NB, np.array([0.5, 1.8, 15.0, 0.0]), am=7.0,
+                                 rm=0.3, N_lane=2, W=cons.W)
+        xs, zs = draw_merge_worlds(B, seed)
+        _, S, xRefs, bx = merge_lane_inputs(t(xs), torch.zeros(B, dtype=torch.bool,
+                                                                device=device), params.bx, cons.W)
+        floor = torch.arange(B, device=device) % 2 == 0
+        return params, cons, pset, model, 0.1, t(xs), t(zs), xRefs, S, bx, floor
+    cons = BranchConstants()
+    xt = np.array([0.5, 1.8, 15.0, 0.0])
+    pset = highway_policy_set(cons, xt)
+    model = highway_model(cons, pset, N=N, dt=0.1)
+    params = init_branch_mpc(4, 2, N, NB, xt, am=6.0, rm=0.3, N_lane=4, W=cons.W)
+    rng = np.random.default_rng(seed)
+    xs = np.array([0.0, 1.8, 20.0, 0.0]) + rng.normal(0, 0.2, (B, 4))
+    zs = np.array([9.0, 1.8, 17.0, 0.0]) + rng.normal(0, 0.5, (B, 4))
+    xRefs = np.tile([0.0, 1.8, 18.0, 0.0], (B, 1))
+    return params, cons, pset, model, 0.9, t(xs), t(zs), t(xRefs), None, None, None
+
+
+def cvar_setup(kind, dtype=torch.float64, device="cpu", N=3, NB=1, B=4, gondzio=GONDZIO,
+               iters=8):
+    """The fused CVaR solve's real inputs for :func:`cvar_problem`: tree
+    build in f64, cast to ``dtype``, then the solver's setup. Returns
+    ``(cplan, cfg, setup, plain iterate)``."""
+    params, _, pset, model, ralpha, xs, zs, xRefs, S, bx, floor = cvar_problem(
+        kind, N, NB, B, device=device)
+    topo = build_topology(N, NB, model.m, 4, 2)
+    cplan = build_cvar_plan(topo)
+    f64 = torch.float64
+    ts = build_tree(model, topo, xs, zs, torch.zeros(B, topo.totalu, 2, dtype=f64, device=device),
+                    cast_params(pset.params, f64, device))
+    bl = lambda a: _to_bl(a.to(dtype))
+    cfg = CVaRIPMConfig(iters=iters, gondzio=gondzio)
+    su = cvar_pl.setup_cvar_ipm(
+        cplan, bl(ts.A), bl(ts.Bm), bl(ts.dh), bl(ts.h0), bl(ts.x_lin), bl(ts.u_lin), bl(ts.p),
+        params.Q, params.R, params.Qslack, bl(xRefs), ralpha, params.Fx,
+        params.bx if bx is None else bl(bx), params.Fu, params.bu, cfg,
+        S_bl=None if S is None else bl(S), dh0_floor=floor)
+    return cplan, cfg, su, cvar_pl.make_cvar_iteration(cplan, cfg, su.dims)
 
 
 def _setup(dtype, device):
@@ -116,3 +186,54 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         with pytest.raises(ValueError):
             su.step_fn(*bad)
     assert tpl.KERNEL.launches == before
+
+
+@pytest.mark.parametrize("kind,NB", [("merge", 1), ("overtake", 2)])
+@pytest.mark.parametrize("itv", [0, 7])
+def test_cvar_kernel_matches_plain_f64(cuda_device, kind, NB, itv):
+    """CVaR kernel, f64: every output field within 1e-10 of its magnitude
+    (merge: per-lane S, bx and dh[0] floor); one launch."""
+    cplan, cfg, su, plain = cvar_setup(kind, torch.float64, cuda_device, NB=NB)
+    before = cvar_pl.KERNEL.launches
+    got = su.step_fn(*su.in_args, itv, *su.carry0)
+    assert cvar_pl.KERNEL.launches == before + 1
+    ref = plain(*su.in_args, itv, *su.carry0)
+    for name, a, b in zip(CVAR_NAMES, got, ref):
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        assert err <= ITER_TOL, (name, err)
+
+
+@pytest.mark.parametrize("kind", ["merge", "overtake"])
+def test_cvar_kernel_matches_plain_f32(cuda_device, kind):
+    """CVaR kernel, f32: as accurate as the plain version in f32 (against the
+    plain version in f64 on the same upcast inputs, the kernel's error in
+    every field is at most 2 × the plain f32 version's + 1e-6 × the
+    magnitude)."""
+    _, _, su, plain = cvar_setup(kind, torch.float32, cuda_device)
+    got = su.step_fn(*su.in_args, 0, *su.carry0)
+    ref = plain(*su.in_args, 0, *su.carry0)
+    up = lambda ts: [t.double() for t in ts]
+    ref64 = plain(*up(su.in_args), 0, *up(su.carry0))
+    for name, g, r, r64 in zip(CVAR_NAMES, got, ref, ref64):
+        e_kernel = (g.double() - r64).abs().max().item()
+        e_plain = (r.double() - r64).abs().max().item()
+        assert e_kernel <= 2 * e_plain + 1e-6 * r64.abs().max().item(), name
+
+
+def test_cvar_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    _, _, su, _ = cvar_setup("merge", torch.float64, cuda_device)
+    args = list(su.in_args) + [0] + list(su.carry0)
+    nc = len(cvar_pl.CONST_ORDER) + len(cvar_pl.SHARED_ORDER)
+    bad_shape = args.copy()
+    bad_shape[0] = args[0][:-1]                             # A_st missing a stage
+    bad_dtype = args.copy()
+    bad_dtype[nc + 1] = args[nc + 1].float()                # x in f32
+    strided = args.copy()
+    strided[2] = args[2].transpose(0, 1).contiguous().transpose(0, 1)   # dh, not contiguous
+    cpu_shared = args.copy()
+    cpu_shared[len(cvar_pl.CONST_ORDER)] = args[len(cvar_pl.CONST_ORDER)].cpu()   # Fu
+    before = cvar_pl.KERNEL.launches
+    for bad in (bad_shape, bad_dtype, strided, cpu_shared):
+        with pytest.raises(ValueError):
+            su.step_fn(*bad)
+    assert cvar_pl.KERNEL.launches == before

@@ -78,3 +78,24 @@ def test_entry_point_defaults_to_cuda():
             make_branch_mpc_batched_step(model, params)
     _, init, _ = make_branch_mpc_batched_step(model, params, device="cpu")
     assert init(2).u_lin.device.type == "cpu"
+
+
+def test_cvar_entry_point_defaults_to_cuda():
+    from belief_planning_tpu_torch.controllers.cvar_mpc import make_cvar_mpc_batched_step
+    from belief_planning_tpu_torch.models.policies import merge_policy_set
+    from belief_planning_tpu_torch.models.predictive import merge_model
+    from belief_planning_tpu_torch.presets import init_branch_mpc
+    from belief_planning_tpu_torch.utils.config import BranchConstants
+
+    cons = BranchConstants(am=7.0)
+    model = merge_model(cons, merge_policy_set(cons, 20.0, None), N=3, dt=0.1)
+    params = init_branch_mpc(4, 2, 3, 1, np.array([0.5, 1.8, 15.0, 0.0]), am=7.0, rm=0.3,
+                             N_lane=2, W=cons.W)
+    if torch.cuda.is_available():
+        _, _, init, _ = make_cvar_mpc_batched_step(model, params, 0.1, use_S=True)
+        assert init(2).u_lin.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_cvar_mpc_batched_step(model, params, 0.1, use_S=True)
+    _, _, init, _ = make_cvar_mpc_batched_step(model, params, 0.1, use_S=True, device="cpu")
+    assert init(2).u_lin.device.type == "cpu"
