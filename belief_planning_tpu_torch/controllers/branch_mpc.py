@@ -22,6 +22,7 @@ from belief_planning_tpu_torch.solvers.tree_qp_pl import qp_ipm_solve_pl
 from belief_planning_tpu_torch.tree.engine import build_tree, shift_warm_start
 from belief_planning_tpu_torch.tree.topology import TreeTopology, build_topology
 from belief_planning_tpu_torch.utils.config import BranchMPCParams
+from belief_planning_tpu_torch.utils.device import resolve_device
 
 
 class MPCCarry(NamedTuple):
@@ -43,15 +44,6 @@ class SolveResult(NamedTuple):
     z: Any            # (Bt, totalu, n) obstacle nodes
     prim_res: Any     # (Bt,) primal residual
     feasible: Any     # (Bt,) bool
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` means the CUDA device; only an explicit ``"cpu"`` runs on the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("belief_planning_tpu_torch runs on a CUDA device; none is "
-                           "available (pass device='cpu' to run on the CPU)")
-    return dev
 
 
 def _cast(tree, dtype):

@@ -15,7 +15,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 from torch.profiler import record_function
 
-from belief_planning_tpu_torch.controllers.branch_mpc import MPCCarry, _cast, resolve_device
+from belief_planning_tpu_torch.controllers.branch_mpc import MPCCarry, _cast
 from belief_planning_tpu_torch.models.policies import cast_params
 from belief_planning_tpu_torch.models.predictive import PredictiveModel
 from belief_planning_tpu_torch.solvers.cvar import build_cvar_plan
@@ -25,6 +25,7 @@ from belief_planning_tpu_torch.solvers.layout import _from_bl, _to_bl
 from belief_planning_tpu_torch.tree.engine import build_tree, shift_warm_start
 from belief_planning_tpu_torch.tree.topology import build_topology
 from belief_planning_tpu_torch.utils.config import BranchMPCParams
+from belief_planning_tpu_torch.utils.device import resolve_device
 
 
 class CVaRSolveResult(NamedTuple):

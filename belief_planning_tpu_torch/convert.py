@@ -1,7 +1,8 @@
 """Carry parameters over from the JAX package's objects to this package's.
 
 The JAX package's ``BranchMPCParams`` / ``BranchConstants`` /
-``CVaRIPMConfig`` hold numpy arrays, floats and ints, and its policy params
+``CVaRIPMConfig`` / ``CVaRConfig`` hold numpy arrays, floats and ints, its
+``TreeState`` holds arrays (numpy after ``np.asarray``), and its policy params
 are NamedTuples (``MaintainParams``, ``MaintainTrackVParams``,
 ``BrakeParams``, ``LaneChangeParams``) of arrays, some with a reference line
 (``RefLine``) in ``psiref``. These functions read them by field name (this
@@ -23,7 +24,9 @@ from belief_planning_tpu_torch.models.policies import (
     MaintainTrackVParams,
     RefLine,
 )
+from belief_planning_tpu_torch.solvers.cvar import CVaRConfig
 from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig
+from belief_planning_tpu_torch.tree.engine import TreeState
 from belief_planning_tpu_torch.utils.config import BranchConstants, BranchMPCParams
 
 _POLICY_PARAMS = {
@@ -53,6 +56,18 @@ def convert_cvar_ipm_config(cfg) -> CVaRIPMConfig:
     """A ``CVaRIPMConfig``-like dataclass → this package's ``CVaRIPMConfig``."""
     return CVaRIPMConfig(**{f.name: getattr(cfg, f.name)
                             for f in dataclasses.fields(CVaRIPMConfig)})
+
+
+def convert_cvar_config(cfg) -> CVaRConfig:
+    """A ``CVaRConfig``-like dataclass (the cone ADMM's) → this package's."""
+    return CVaRConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(CVaRConfig)})
+
+
+def convert_tree_state(ts, device, dtype=torch.float64) -> TreeState:
+    """A ``TreeState``-like NamedTuple of arrays → this package's, field by
+    field (any leading batch axes are kept)."""
+    return TreeState(*(torch.as_tensor(np.array(getattr(ts, f)), dtype=dtype, device=device)
+                       for f in TreeState._fields))
 
 
 def convert_ref_line(line, device, dtype=torch.float64) -> RefLine:

@@ -37,6 +37,13 @@
 // lane only B/32 warps are in flight to hide the latency of those dependent
 // loads. Shared-memory staging, warp-per-tree splits and tensor cores are
 // later work.
+//
+// The same source carries the phase kernels that replace the reference's
+// K1 profile (scripts/profile_ipm_kernel.py, make_phase_fn): run<PHASE> with
+// PHASE 0 = barrier weights + tree-Riccati factor, 1 = that + one linear
+// sweep on the raw (qx, qu, qterm) and the forward rollout, 2 = the full
+// iteration (the main kernel itself). Their plain versions are make_phase in
+// belief_planning_tpu_torch/solvers/tree_qp_pl.py.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -292,6 +299,19 @@ struct Lane {
         S[ly.rdterm + b * NX + i] = acc + qterm[b * NX + i];
       }
     }
+  }
+
+  // the barrier weights alone (residuals() computes them beside the rest)
+  __device__ void weights() {
+    const T wmax = P.wmax;
+    const long long U = dm.totalu;
+    for (long long e = 0; e < U * Nc; ++e) {
+      const T w1e = pmin(lam1[e] / sl1[e], wmax), w3e = pmin(lam3[e] / sl3[e], wmax);
+      S[ly.w1 + e] = w1e;
+      S[ly.w3 + e] = w3e;
+      S[ly.kap + e] = slack_quad + w1e + w3e + P.reg;
+    }
+    for (long long e = 0; e < U * nF; ++e) S[ly.w2 + e] = pmin(lam2[e] / sl2[e], wmax);
   }
 
   // out (+)= Dab2_s u_s
@@ -573,7 +593,42 @@ struct Lane {
       for (int a = 0; a < NU; ++a)
         S[ly.qur + st * NU + a] = pure ? fT[a] : S[ly.rdu + st * NU + a] + fT[a];
     });
+    sweep(D, pure);
 
+    // slack / multiplier directions per stage
+    for_each_stage([&](int, int, int, int st, int xn) {
+      T dxv[NX], duv[NU];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) dxv[i] = S[D.f[0] + (long long)xn * NX + i];
+#pragma unroll
+      for (int a = 0; a < NU; ++a) duv[a] = S[D.f[1] + st * NU + a];
+      for (int r = 0; r < Nc; ++r) {
+        const long long e = (long long)st * Nc + r;
+        const T rv = row_val(st, r, dxv);
+        const T dsv = (S[ly.w1 + e] * rv - S[ly.qsr + e]) / S[ly.kap + e];
+        const T drow1 = rv - dsv;
+        const T dsl1 = pure ? -drow1 : -S[ly.r1 + e] - drow1;
+        const T dsl3 = pure ? dsv : -S[ly.r3 + e] + dsv;
+        S[D.f[2] + e] = dsv;
+        S[D.f[3] + e] = dsl1;
+        S[D.f[4] + e] = (-S[ly.rc1 + e] - lam1[e] * dsl1) / sl1[e];
+        S[D.f[7] + e] = dsl3;
+        S[D.f[8] + e] = (-S[ly.rc3 + e] - lam3[e] * dsl3) / sl3[e];
+      }
+      for (int q = 0; q < nF; ++q) {
+        const long long e = (long long)st * nF + q;
+        const T drow2 = fu_val(q, duv);
+        const T dsl2 = pure ? -drow2 : -S[ly.r2 + e] - drow2;
+        S[D.f[5] + e] = dsl2;
+        S[D.f[6] + e] = (-S[ly.rc2 + e] - lam2[e] * dsl2) / sl2[e];
+      }
+    });
+  }
+
+  // The factor's backward linear sweep on the right-hand sides in scratch
+  // (qxeff, qur; the terminal rdterm unless `pure`) → kff, then the forward
+  // rollout from a zero root state → D's dx, du.
+  __device__ void sweep(const DirOff& D, bool pure) {
     // backward linear sweep → kff
     for (int k = dm.nlev - 1; k >= 0; --k) {
       for (int b = 0; b < dm.nb[k]; ++b) {
@@ -677,35 +732,6 @@ struct Lane {
         if (k + 1 < dm.nlev) store(ly.xiend + (long long)(dm.bo[k] + b) * ND, ND, xi);
       }
     }
-
-    // slack / multiplier directions per stage
-    for_each_stage([&](int, int, int, int st, int xn) {
-      T dxv[NX], duv[NU];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) dxv[i] = S[DX + (long long)xn * NX + i];
-#pragma unroll
-      for (int a = 0; a < NU; ++a) duv[a] = S[DU + st * NU + a];
-      for (int r = 0; r < Nc; ++r) {
-        const long long e = (long long)st * Nc + r;
-        const T rv = row_val(st, r, dxv);
-        const T dsv = (S[ly.w1 + e] * rv - S[ly.qsr + e]) / S[ly.kap + e];
-        const T drow1 = rv - dsv;
-        const T dsl1 = pure ? -drow1 : -S[ly.r1 + e] - drow1;
-        const T dsl3 = pure ? dsv : -S[ly.r3 + e] + dsv;
-        S[D.f[2] + e] = dsv;
-        S[D.f[3] + e] = dsl1;
-        S[D.f[4] + e] = (-S[ly.rc1 + e] - lam1[e] * dsl1) / sl1[e];
-        S[D.f[7] + e] = dsl3;
-        S[D.f[8] + e] = (-S[ly.rc3 + e] - lam3[e] * dsl3) / sl3[e];
-      }
-      for (int q = 0; q < nF; ++q) {
-        const long long e = (long long)st * nF + q;
-        const T drow2 = fu_val(q, duv);
-        const T dsl2 = pure ? -drow2 : -S[ly.r2 + e] - drow2;
-        S[D.f[5] + e] = dsl2;
-        S[D.f[6] + e] = (-S[ly.rc2 + e] - lam2[e] * dsl2) / sl2[e];
-      }
-    });
   }
 
   // ---- step rules ------------------------------------------------------------
@@ -785,7 +811,37 @@ struct Lane {
     return ok;
   }
 
+  // PHASE 2: one full iteration (the main path). PHASE 0 / 1: the profile's
+  // phases, which write only t0 (Σ K + Σ Hinv, or Σ dx + Σ du over every
+  // stage) into the gap output. The reference's phase kernels carry the whole
+  // state through and nudge sl1 by 1e-30·t0 only to chain a scan of them
+  // inside one jit; stream order chains CUDA launches, so these write t0 alone.
+  // t0 sums up to ~1.5k values of one lane in order: in f32 that sequential
+  // sum alone would part from the exact sum by more than the plain version's
+  // pairwise one, so it is accumulated in double.
+  template <int PHASE>
   __device__ void run(long long t) {
+    if constexpr (PHASE < 2) {
+      weights();
+      factor();
+      const long long U = dm.totalu;
+      double t0 = 0.0;
+      if constexpr (PHASE == 0) {
+        for (long long e = 0; e < U * NU * ND; ++e) t0 += S[ly.K + e];
+        for (long long e = 0; e < U * NU * NU; ++e) t0 += S[ly.Hinv + e];
+      } else {
+        for (long long e = 0; e < U * NX; ++e) S[ly.qxeff + e] = qx[e];
+        for (long long e = 0; e < U * NU; ++e) S[ly.qur + e] = qu[e];
+        for (long long e = 0; e < (long long)dm.nb[dm.nlev - 1] * NX; ++e)
+          S[ly.rdterm + e] = qterm[e];
+        const DirOff& D = ly.D[0];
+        sweep(D, false);
+        for (long long e = 0; e < (long long)dm.totalx * NX; ++e) t0 += S[D.f[0] + e];
+        for (long long e = 0; e < U * NU; ++e) t0 += S[D.f[1] + e];
+      }
+      P.gap[t] = T(t0);
+      return;
+    }
     residuals();
     factor();
     const DirOff& Da = ly.D[0];
@@ -839,7 +895,16 @@ tree_qp_ipm_iter_kernel(const __grid_constant__ Params<T> P) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= P.B) return;
   Lane<T, NX, NU> lane(P, t);
-  lane.run(t);
+  lane.template run<2>(t);
+}
+
+template <typename T, int NX, int NU, int PHASE>
+__global__ void __launch_bounds__(kThreads)
+tree_qp_phase_kernel(const __grid_constant__ Params<T> P) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= P.B) return;
+  Lane<T, NX, NU> lane(P, t);
+  lane.template run<PHASE>(t);
 }
 
 bool parse_dims(const int* ints, Dims* dm) {
@@ -872,11 +937,13 @@ bool parse_dims(const int* ints, Dims* dm) {
   return bo == dm->nbr && dm->leaf[dm->nlev - 1] == 1;
 }
 
+// phase: 0 / 1 the profile's phase kernels, 2 the full iteration
 template <typename T>
-int launch(const void* const* ptrs, const int* ints, const double* dbl, long long B,
-           int device, void* stream) {
+int launch(int phase, const void* const* ptrs, const int* ints, const double* dbl,
+           long long B, int device, void* stream) {
   Params<T> P;
-  if (B < 1 || !parse_dims(ints, &P.dm)) return (int)cudaErrorInvalidValue;
+  if (B < 1 || phase < 0 || phase > 2 || !parse_dims(ints, &P.dm))
+    return (int)cudaErrorInvalidValue;
   if (P.dm.n != 4 || P.dm.d != 2) return (int)cudaErrorInvalidValue;
   // this library carries its own CUDA runtime: select the tensors' device
   const cudaError_t set = cudaSetDevice(device);
@@ -897,8 +964,15 @@ int launch(const void* const* ptrs, const int* ints, const double* dbl, long lon
   P.bmax = T(dbl[6]);
   P.ly = make_layout(P.dm);
   const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
-  tree_qp_ipm_iter_kernel<T, 4, 2>
-      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(P);
+  if (phase == 0)
+    tree_qp_phase_kernel<T, 4, 2, 0>
+        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(P);
+  else if (phase == 1)
+    tree_qp_phase_kernel<T, 4, 2, 1>
+        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(P);
+  else
+    tree_qp_ipm_iter_kernel<T, 4, 2>
+        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(P);
   return (int)cudaGetLastError();
 }
 
@@ -914,13 +988,30 @@ int launch(const void* const* ptrs, const int* ints, const double* dbl, long lon
 extern "C" int bp_tree_qp_iter_f32(const void* const* ptrs, const int* ints,
                                    const double* dbl, long long B, int device,
                                    void* stream) {
-  return launch<float>(ptrs, ints, dbl, B, device, stream);
+  return launch<float>(2, ptrs, ints, dbl, B, device, stream);
 }
 
 extern "C" int bp_tree_qp_iter_f64(const void* const* ptrs, const int* ints,
                                    const double* dbl, long long B, int device,
                                    void* stream) {
-  return launch<double>(ptrs, ints, dbl, B, device, stream);
+  return launch<double>(2, ptrs, ints, dbl, B, device, stream);
+}
+
+// The profile's phase kernels 0 and 1: as bp_tree_qp_iter_*, with the 9
+// carry-out pointers possibly null (only the gap output, which takes t0, is
+// written). Phase 2, the full iteration, is bp_tree_qp_iter_* itself.
+extern "C" int bp_tree_qp_phase_f32(int phase, const void* const* ptrs, const int* ints,
+                                    const double* dbl, long long B, int device,
+                                    void* stream) {
+  if (phase != 0 && phase != 1) return (int)cudaErrorInvalidValue;
+  return launch<float>(phase, ptrs, ints, dbl, B, device, stream);
+}
+
+extern "C" int bp_tree_qp_phase_f64(int phase, const void* const* ptrs, const int* ints,
+                                    const double* dbl, long long B, int device,
+                                    void* stream) {
+  if (phase != 0 && phase != 1) return (int)cudaErrorInvalidValue;
+  return launch<double>(phase, ptrs, ints, dbl, B, device, stream);
 }
 
 // scratch elements per lane for this level table, or -1 if it is invalid

@@ -16,6 +16,10 @@ fraction-to-boundary step with two 0.3× backtracks) is one call of
 - on CPU tensors it runs :func:`make_iteration`, the plain PyTorch version
   of the same iteration, which the tests hold against the JAX package.
 
+:func:`phase_step` drives the same source's phase kernels, the counterpart
+of the reference's K1 profile (``scripts/profile_ipm_kernel.py``), with
+:func:`make_phase` as their plain version.
+
 The loop over iterations and the best-iterate tracking stay in Python
 (:func:`qp_ipm_solve_pl`).
 """
@@ -258,6 +262,28 @@ def _rate_edge_terms(levels, Dab2, u_c, m):
     return torch.cat(blocks, dim=0)
 
 
+def _barrier_factor(levels, cfg: QPIPMConfig, w_max_eff, Qx2, Ru2, Dab2, Pterm2, A_st, B_st,
+                    dh, Fx, Fu, slack_quad, sl1, lam1, sl2, lam2, sl3, lam3, n, d, m):
+    """Barrier weights (clamped at ``w_max_eff``) and the barrier-weighted
+    tree-Riccati factor. Returns (w1, w2, w3, kap, (K_l, Hinv_l, Acl_l))."""
+    dtype, dev = sl1.dtype, sl1.device
+    w1 = torch.clamp(lam1 / sl1, max=w_max_eff)
+    w2 = torch.clamp(lam2 / sl2, max=w_max_eff)
+    w3 = torch.clamp(lam3 / sl3, max=w_max_eff)
+    kap = slack_quad + w1 + w3 + cfg.reg
+    coefs = w1 - w1 * w1 / kap
+    # Σ_r coef_r F_r F_rᵀ over the rows [−dh; Fx]
+    row_quad = coefs[:, 0:1, None] * dh[:, :, None] * dh[:, None, :]
+    row_quad = row_quad + torch.einsum("srt,ri,rj->sijt", coefs[:, 1:], Fx, Fx)
+    eye_n = torch.eye(n, dtype=dtype, device=dev)[:, :, None]
+    eye_d = torch.eye(d, dtype=dtype, device=dev)[:, :, None]
+    Qx2_eff = Qx2 + row_quad + cfg.reg * eye_n
+    Ru2_eff = (Ru2 + cfg.reg * eye_d) + torch.einsum("srt,ri,rj->sijt", w2, Fu, Fu)
+    Pterm2_eff = Pterm2 + cfg.reg * eye_n
+    return w1, w2, w3, kap, _factor_blocks(levels, Qx2_eff, Dab2, Ru2_eff, Pterm2_eff, A_st,
+                                           B_st, n, d, m)
+
+
 # ---------------------------------------------------------------------------
 # One fused IPM iteration: the plain PyTorch version of the kernel
 # ---------------------------------------------------------------------------
@@ -295,11 +321,6 @@ def make_iteration(plan: StagePlan, cfg: QPIPMConfig, nFx: int, nFu: int,
         def row_mulT(v):
             return -dh * v[:, 0:1] + torch.einsum("rn,srt->snt", Fx, v[:, 1:])
 
-        def row_quad(coefs):
-            """(totalu, Nc, T) → Σ_r coef_r F_r F_rᵀ (totalu, n, n, T)."""
-            out = coefs[:, 0:1, None] * dh[:, :, None] * dh[:, None, :]
-            return out + torch.einsum("srt,ri,rj->sijt", coefs[:, 1:], Fx, Fx)
-
         def fu_mul(uv):
             return torch.einsum("rd,sdt->srt", Fu, uv)
 
@@ -320,18 +341,9 @@ def make_iteration(plan: StagePlan, cfg: QPIPMConfig, nFx: int, nFu: int,
                + sum_lane(sl3 * lam3)) / mtot                     # (1, T)
 
         # --- barrier-weighted factorization ---------------------------------
-        w1 = torch.clamp(lam1 / sl1, max=w_max_eff)
-        w2 = torch.clamp(lam2 / sl2, max=w_max_eff)
-        w3 = torch.clamp(lam3 / sl3, max=w_max_eff)
-        kap = slack_quad + w1 + w3 + cfg.reg
-        coefs = w1 - w1 * w1 / kap
-        eye_n = torch.eye(n, dtype=dtype, device=x_c.device)[:, :, None]
-        eye_d = torch.eye(d, dtype=dtype, device=x_c.device)[:, :, None]
-        Qx2_eff = Qx2 + row_quad(coefs) + cfg.reg * eye_n
-        Ru2_eff = (Ru2 + cfg.reg * eye_d) + torch.einsum("srt,ri,rj->sijt", w2, Fu, Fu)
-        Pterm2_eff = Pterm2 + cfg.reg * eye_n
-        K_l, Hinv_l, Acl_l = _factor_blocks(levels, Qx2_eff, Dab2, Ru2_eff,
-                                            Pterm2_eff, A_st, B_st, n, d, m)
+        w1, w2, w3, kap, (K_l, Hinv_l, Acl_l) = _barrier_factor(
+            levels, cfg, w_max_eff, Qx2, Ru2, Dab2, Pterm2, A_st, B_st, dh, Fx, Fu,
+            slack_quad, sl1, lam1, sl2, lam2, sl3, lam3, n, d, m)
 
         def kkt_solve(qx_r, qu_r, qterm_r, qs_r):
             qx_eff = qx_r + row_mulT((w1 / kap) * qs_r)
@@ -436,6 +448,49 @@ def make_iteration(plan: StagePlan, cfg: QPIPMConfig, nFx: int, nFu: int,
     return iterate
 
 
+# The profile's phases (the reference's scripts/profile_ipm_kernel.py):
+# 0 = barrier weights + factor, 1 = that + one linear sweep on the raw
+# (qx, qu, qterm) and the forward rollout, 2 = the full iteration.
+PHASES = (0, 1, 2)
+
+
+def phase_w_max(cfg: QPIPMConfig) -> float:
+    """The barrier-weight clamp of phases 0 and 1 in every dtype, as the
+    reference's profile sets it."""
+    return min(cfg.w_max, 1e6)
+
+
+def make_phase(plan: StagePlan, cfg: QPIPMConfig, nFx: int, nFu: int, mtot: float, phase: int):
+    """The plain version of the phase kernels: ``run(consts..., carry...)``
+    → t0 (1, T) for phases 0 (Σ K + Σ Hinv over every stage) and 1 (Σ dx +
+    Σ du); phase 2 is :func:`make_iteration`'s iteration (new carry + gap)."""
+    if phase not in PHASES:
+        raise ValueError(f"tree_qp phase {phase}: expected one of {PHASES}")
+    if phase == 2:
+        return make_iteration(plan, cfg, nFx, nFu, mtot)
+    topo = plan.topo
+    n, d, m = topo.n, topo.d, topo.m
+    levels = build_levels(plan)
+
+    def lane_sum(blocks):
+        """Σ over every non-lane axis of each block, the blocks in order: (1, T)."""
+        T = blocks[0].shape[-1]
+        return sum(b.reshape(-1, T).sum(0) for b in blocks).reshape(1, T)
+
+    def run(Qx2, qx, Ru2, qu, Dab2, qterm, Pterm2, slack_lin, slack_quad,
+            A_st, B_st, dh, b1, Fx, Fu, bu, x_c, u_c, s_c, sl1, lam1, sl2, lam2, sl3, lam3):
+        *_, (K_l, Hinv_l, Acl_l) = _barrier_factor(
+            levels, cfg, phase_w_max(cfg), Qx2, Ru2, Dab2, Pterm2, A_st, B_st, dh, Fx, Fu,
+            slack_quad, sl1, lam1, sl2, lam2, sl3, lam3, n, d, m)
+        if phase == 0:
+            return lane_sum(K_l + Hinv_l)
+        kff_l = _linear_blocks(levels, K_l, Hinv_l, Acl_l, B_st, qx, qu, qterm, n, d, m)
+        dx, du = _forward_blocks(levels, K_l, Acl_l, B_st, kff_l, n, d, m, x_c.shape[-1])
+        return lane_sum([dx, du])
+
+    return run
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel and its wrapper
 # ---------------------------------------------------------------------------
@@ -452,12 +507,16 @@ KERNEL_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "tree_qp_ipm_iter
 
 class FusedIterationKernel:
     """Wrapper of ``csrc/tree_qp_ipm_iter.cu`` (replaces the reference's
-    ``tree_qp_pl._make_pallas_iteration``). ``launches`` counts the kernel
-    launches, and nothing else; ``build_log`` / ``build_seconds`` are what
-    nvcc printed and took when this process built the library."""
+    ``tree_qp_pl._make_pallas_iteration``, and with :meth:`launch_phase` the
+    phase kernels of its profile, ``scripts/profile_ipm_kernel.py``).
+    ``launches`` counts the main kernel's launches (the full iteration,
+    the profile's phase 2 included) and ``phase_launches`` those of phase
+    kernels 0 and 1, and nothing else; ``build_log`` / ``build_seconds`` are what nvcc printed and took
+    when this process built the library."""
 
     def __init__(self):
         self.launches = 0
+        self.phase_launches = 0
         self.build_log = ""
         self.build_seconds = 0.0
         self._lib = None
@@ -470,6 +529,13 @@ class FusedIterationKernel:
             for name in ("bp_tree_qp_iter_f32", "bp_tree_qp_iter_f64"):
                 fn = getattr(lib, name)
                 fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                               ctypes.POINTER(ctypes.c_int),
+                               ctypes.POINTER(ctypes.c_double),
+                               ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            for name in ("bp_tree_qp_phase_f32", "bp_tree_qp_phase_f64"):
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
                                ctypes.POINTER(ctypes.c_int),
                                ctypes.POINTER(ctypes.c_double),
                                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
@@ -489,23 +555,43 @@ class FusedIterationKernel:
     def launch(self, ints, dbl, consts, carry, scratch):
         """Launch one iteration on the current stream; returns the new carry
         and the gap (allocated here)."""
-        lib = self.load()
         x_c = carry[0]
         outs = [torch.empty_like(c) for c in carry]
         gap = torch.empty((1, x_c.shape[-1]), dtype=x_c.dtype, device=x_c.device)
-        ptrs = [t.data_ptr() for t in (*consts, *carry, *outs, gap, scratch)]
+        lib = self.load()
         fn = lib.bp_tree_qp_iter_f64 if x_c.dtype == torch.float64 else lib.bp_tree_qp_iter_f32
+        self._call(fn, (), "tree_qp_ipm_iter", ints, dbl,
+                   [*consts, *carry, *outs, gap, scratch], x_c)
+        self.launches += 1
+        return (*outs, gap)
+
+    def launch_phase(self, phase, ints, dbl, consts, carry, scratch):
+        """Launch phase kernel 0 or 1 on the current stream; returns t0 (1, B)."""
+        x_c = carry[0]
+        t0 = torch.empty((1, x_c.shape[-1]), dtype=x_c.dtype, device=x_c.device)
+        lib = self.load()
+        fn = lib.bp_tree_qp_phase_f64 if x_c.dtype == torch.float64 else lib.bp_tree_qp_phase_f32
+        # the phase kernels write t0 alone: null carry outputs
+        ptrs = [t.data_ptr() for t in (*consts, *carry)] + [0] * len(carry) \
+            + [t0.data_ptr(), scratch.data_ptr()]
+        self._call(fn, (ctypes.c_int(phase),), f"tree_qp phase {phase}", ints, dbl, ptrs, x_c)
+        self.phase_launches += 1
+        return t0
+
+    @staticmethod
+    def _call(fn, lead, what, ints, dbl, ptrs, x_c):
+        """Call a launcher of the library on ``x_c``'s device and current
+        stream; ``ptrs`` are tensors or raw addresses."""
+        ptrs = [p.data_ptr() if isinstance(p, torch.Tensor) else p for p in ptrs]
         with torch.cuda.device(x_c.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = fn((ctypes.c_void_p * len(ptrs))(*ptrs),
+            err = fn(*lead, (ctypes.c_void_p * len(ptrs))(*ptrs),
                      (ctypes.c_int * len(ints))(*ints),
                      (ctypes.c_double * len(dbl))(*dbl),
                      ctypes.c_longlong(x_c.shape[-1]), ctypes.c_int(x_c.device.index),
                      ctypes.c_void_p(stream))
         if err != 0:
-            raise RuntimeError(f"tree_qp_ipm_iter launch failed: CUDA error {err}")
-        self.launches += 1
-        return (*outs, gap)
+            raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
 KERNEL = FusedIterationKernel()
@@ -536,8 +622,27 @@ def fused_iteration(plan: StagePlan, cfg: QPIPMConfig, nFx: int, nFu: int,
     → new carry + gap. CUDA tensors launch the kernel (scratch allocated once
     per step function, i.e. once per solve); CPU tensors run the plain
     version."""
+    return _kernel_step(plan, cfg, nFx, nFu, mtot, None)
+
+
+def phase_step(plan: StagePlan, cfg: QPIPMConfig, nFx: int, nFu: int, mtot: float,
+               phase: int):
+    """Step function of one phase kernel of the profile: ``step(consts...,
+    carry...)`` → t0 (phases 0, 1) or new carry + gap (phase 2). CUDA tensors
+    launch the phase kernel (phase 2: the main path's kernel, counted as
+    its launches); CPU tensors run :func:`make_phase`."""
+    if phase not in PHASES:
+        raise ValueError(f"tree_qp phase {phase}: expected one of {PHASES}")
+    if phase == 2:
+        return fused_iteration(plan, cfg, nFx, nFu, mtot)
+    return _kernel_step(plan, cfg, nFx, nFu, mtot, phase)
+
+
+def _kernel_step(plan, cfg, nFx, nFu, mtot, phase):
+    """The step function of the main path (``phase=None``) or of phase 0 / 1."""
     topo = plan.topo
-    iterate = make_iteration(plan, cfg, nFx, nFu, mtot)
+    iterate = make_iteration(plan, cfg, nFx, nFu, mtot) if phase is None \
+        else make_phase(plan, cfg, nFx, nFu, mtot, phase)
     n, d, Nc = topo.n, topo.d, nFx + 1
     ints = kernel_ints(plan, cfg, nFx, nFu)
     n_leaves = len(plan.leaf_ids)
@@ -580,8 +685,11 @@ def fused_iteration(plan: StagePlan, cfg: QPIPMConfig, nFx: int, nFu: int,
             scratch[:] = [torch.empty((KERNEL.scratch_elems(ints), Z), dtype=x_c.dtype,
                                       device=x_c.device)]
         nc = len(CONST_ORDER)
-        return KERNEL.launch(ints, kernel_scalars(cfg, mtot, x_c.dtype),
-                             args[:nc], args[nc:], scratch[0])
+        dbl = kernel_scalars(cfg, mtot, x_c.dtype)
+        if phase is None:
+            return KERNEL.launch(ints, dbl, args[:nc], args[nc:], scratch[0])
+        dbl[2] = phase_w_max(cfg)
+        return KERNEL.launch_phase(phase, ints, dbl, args[:nc], args[nc:], scratch[0])
 
     return step
 

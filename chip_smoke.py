@@ -40,10 +40,28 @@ Phases, one JSON line each:
    the CPU: two steps' |Δu| |Δx|, and the first 10 gaps of one solve to
    rtol 1e-8, atol 1e-10); ``cvar_refine_f64`` (the merge at B=256 with an
    8-iteration f64 restart through the double kernel);
-6. the ``kernels`` line (both kernels), the ``nvidia-smi`` line, and the
-   result line.
+6. the cone-ADMM slice (``solvers/cvar.cvar_solve``, kernel
+   ``csrc/proj_soc.cu``): ``build_soc``; ``soc_kernel_vs_plain`` (f64 at
+   1e-14 and f32 at 1e-6 of each input row's magnitude, tie rows exact);
+   ``soc_kernel_time`` (32768 × 97 rows, k = 8, f32 and f64, held to the
+   same bars); ``soc_kernel_on_admm_rows`` (every projection of one
+   400-iteration f64 solve at B=32768 also run by the plain version, and
+   on the rows cast to f32, at the same bars);
+   ``admm_main_path`` (a batched 400-iteration solve of the CVaR overtake
+   at B=32768 in f64, where the reference converges: solve ms, prim_res,
+   J, K3's share of device time, exactly iters + 2 launches);
+   ``admm_vs_cpu`` (the same in f64 at B=64, card against CPU: |Δu| held
+   at 1e-7 after 30 and after 400 iterations, |Δx| reported);
+7. the K1 profile (the phase kernels of ``csrc/tree_qp_ipm_iter.cu``):
+   ``k1_phases_vs_plain`` (phases 0 and 1 in f64 at B=1024, 1e-10; on
+   the profile's f32 inputs at B=2048 and B=32768 with the f32 accuracy
+   bar, and in f64 at B=32768, 1e-10), then
+   ``scripts/torch_port_profile_ipm_kernel.py``'s timing at B=2048 and
+   B=32768 (``k1_phases``, per-iteration factor | factor + 1 solve | full);
+8. the ``kernels`` line (all four kernels), the ``nvidia-smi`` line, and
+   the result line.
 
-Both kernels are built at the start, in parallel (one nvcc each).
+Every kernel source is built at the start, in parallel (one nvcc each).
 
 Any failed check raises and the script exits non-zero. It needs one card,
 and exits non-zero without printing a result when CUDA is unavailable or the
@@ -325,10 +343,11 @@ def scaled_err(a_list, b_list, names):
     return out
 
 
-def profile_step(run):
+def profile_step(run, kernels=()):
     """Where one warm-started step's time goes: ``run()`` under
     torch.profiler; the ``bp.*`` spans, device busy time and idle share, the
-    top device ops."""
+    top device ops, and the device ms of the ops whose name contains each
+    of ``kernels``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -348,10 +367,14 @@ def profile_step(run):
             on_device[e.name] = (n_ + 1, t_ + ms)
     device_ms = sum(t for _, t in on_device.values())
     top = sorted(on_device.items(), key=lambda kv: -kv[1][1])[:5]
-    return {"wall_ms_profiled": wall_ms, "device_busy_ms": device_ms,
-            "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
-            "device_ops": sum(n_ for n_, _ in on_device.values()), "spans": spans,
-            "top_device_ms": [[k[:70], t, n_] for k, (n_, t) in top]}
+    out = {"wall_ms_profiled": wall_ms, "device_busy_ms": device_ms,
+           "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
+           "device_ops": sum(n_ for n_, _ in on_device.values()), "spans": spans,
+           "top_device_ms": [[k[:70], t, n_] for k, (n_, t) in top]}
+    if kernels:
+        out["kernel_device_ms"] = {k: sum(t for name, (_, t) in on_device.items() if k in name)
+                                   for k in kernels}
+    return out
 
 
 def run_cvar_phases(dev, card, K2):
@@ -558,6 +581,345 @@ def run_cvar_phases(dev, card, K2):
             "library_ms": None}
 
 
+# ---- the cone-ADMM slice and the K1 profile -----------------------------------
+
+SOC_K = 2 + n + d          # cone row length of the CVaR ADMM: (1+t, x rows, u rows, 1−t)
+ADMM_ITERS = 400
+ADMM_EARLY_ITERS = 30
+
+
+def soc_test_rows(rows, dtype, dev, seed=0):
+    """Random cone rows over five decades of scale, then the tie rows:
+    ‖u‖ = t (kept), ‖u‖ = −t (zeroed), u = 0 with t < 0 (zeroed), t = 0 with
+    u ≠ 0 (halved), t = 0 with u = 0, u = 0 with t > 0 (kept)."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(rows, SOC_K)) * 10.0 ** rng.uniform(-2, 3, (rows, 1))
+    ties = np.zeros((6, SOC_K))
+    ties[0, :3] = [5.0, 3.0, 4.0]
+    ties[1, :3] = [-5.0, 3.0, 4.0]
+    ties[2, 0] = -2.0
+    ties[3, 1:] = rng.normal(size=SOC_K - 1)
+    ties[5, 0] = 1.5
+    return torch.as_tensor(np.concatenate([ties, v]), dtype=dtype, device=dev)
+
+
+def admm_problem(dev, B, dtype):
+    """``cvar_solve``'s inputs on the CVaR overtake (N=8, NB=2, m=3, ralpha
+    0.9): the bench's states, tree built in f64 on ``dev`` from a cold
+    ``u_lin``, cast to ``dtype``."""
+    from belief_planning_tpu_torch.models.policies import cast_params
+    from belief_planning_tpu_torch.solvers.cvar import build_cvar_plan
+    from belief_planning_tpu_torch.tree.engine import TreeState, build_tree
+    from belief_planning_tpu_torch.tree.topology import build_topology
+
+    model, params, pset, _, ralpha, _ = cvar_config("cvar_overtake")
+    topo = build_topology(params.N, params.NB, model.m, n, d)
+    f64 = torch.float64
+    xs, zs, xRefs, _, _ = cvar_states("cvar_overtake", B, dev, f64)
+    ts = build_tree(model, topo, xs, zs, torch.zeros(B, topo.totalu, d, dtype=f64, device=dev),
+                    cast_params(pset.params, f64, dev))
+    ts = TreeState(*(a.to(dtype) for a in ts))
+    args = (build_cvar_plan(topo), ts, params.Q, params.R, params.Qslack, xRefs[0].cpu().numpy(),
+            ralpha, params.Fx, params.bx, params.Fu, params.bu, xs.to(dtype))
+    return topo, args
+
+
+def admm_cfg(iters=ADMM_ITERS):
+    from belief_planning_tpu_torch.solvers.cvar import CVaRConfig
+    return CVaRConfig(rho4=10.0, rho5=10.0, rho_eq=10.0, rho_sign=10.0, iters=iters)
+
+
+def run_admm_phases(dev, card, K3):
+    """The cone-ADMM CVaR solve and its SOC projection kernel; returns the
+    kernel's ``kernels`` entry."""
+    from belief_planning_tpu_torch.ops import soc
+    from belief_planning_tpu_torch.ops.soc import proj_soc
+    from belief_planning_tpu_torch.solvers.cvar import _proj_soc_batch, cvar_solve
+
+    f32, f64 = torch.float32, torch.float64
+    # ---- the kernel against its plain version on the card -----------------------
+    # Errors are scaled by the input row's magnitude: near ‖u‖ = −t the scale
+    # a = ½(1 + t/‖u‖) cancels, so an output row can be far smaller than its
+    # input while its rounding error stays of the input's order.
+    bars = {f64: 1e-14, f32: 1e-6}
+
+    def row_scaled(got, ref, v):
+        """Worst |kernel − plain| of a row over the input row's magnitude."""
+        row_mag = v.abs().amax(1).clamp(min=torch.finfo(v.dtype).tiny)
+        return ((got - ref).abs().amax(1) / row_mag).amax().item()
+
+    for dtype, rows in ((f64, 1 << 20), (f32, 1 << 20)):
+        v = soc_test_rows(rows, dtype, dev)
+        got = proj_soc(v)
+        torch.cuda.synchronize()
+        ref = _proj_soc_batch(v)
+        rel = row_scaled(got, ref, v)
+        ties_exact = bool(torch.equal(got[:3], ref[:3]))
+        emit({"phase": "soc_kernel_vs_plain", "dtype": str(dtype)[6:], "rows": rows + 6,
+              "k": SOC_K, "worst_row_scaled": rel, "tol_row_scaled": bars[dtype],
+              "max_abs_err": (got - ref).abs().max().item(), "ties_exact": ties_exact, **card})
+        if not (rel <= bars[dtype] and ties_exact):
+            raise AssertionError(f"proj_soc kernel disagrees with its plain version: {rel:.3e} "
+                                 f"> {bars[dtype]:.0e} of an input row's magnitude ({dtype}), "
+                                 "or a tie row differs")
+        del v, got, ref
+
+    # ---- its time at the ADMM path's shape, f32 and f64 -------------------------
+    rows = BENCH_B * 97                       # trees × stages (totalu = 97)
+    timing = {}
+    for dtype in (f32, f64):
+        v = soc_test_rows(rows - 6, dtype, dev, seed=1)
+        got, ref = proj_soc(v), _proj_soc_batch(v)
+        err, rel = (got - ref).abs().max().item(), row_scaled(got, ref, v)
+        del got, ref
+        k_ms = cuda_ms(lambda: proj_soc(v), reps=20)
+        plain_ms = cuda_ms(lambda: _proj_soc_batch(v), reps=5)
+        nbytes = 2 * v.numel() * v.element_size()
+        flops = rows * (3 * SOC_K + 10)
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_FLOPS[str(dtype)[6:]] * 1e3
+        bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        timing[dtype] = dict(ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             max_abs_err=err)
+        emit({"phase": "soc_kernel_time", "rows": rows, "k": SOC_K, "dtype": str(dtype)[6:],
+              "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+              "bytes": nbytes, "flops": flops, "GB_per_s": nbytes / k_ms / 1e6,
+              "max_abs_err": err, "worst_row_scaled": rel, "tol_row_scaled": bars[dtype],
+              **card})
+        if not rel <= bars[dtype]:
+            raise AssertionError(f"proj_soc kernel disagrees with its plain version at the "
+                                 f"ADMM shape: {rel:.3e} > {bars[dtype]:.0e} ({dtype})")
+        del v
+
+    # ---- the kernel on the cone rows the main path projects ---------------------
+    # The same solve as the main path's, with every projection of its z-update
+    # also run by the plain version (f64) and by the kernel and the plain
+    # version on the rows cast to f32; not counted as the main path's launches.
+    cfg = admm_cfg()
+    topo, args = admm_problem(dev, BENCH_B, f64)
+    worst = {f64: 0.0, f32: 0.0}
+    calls = []
+
+    def tapped(v):                # cvar_solve looks proj_soc up in ops.soc at each call
+        got = proj_soc(v)
+        worst[f64] = max(worst[f64], row_scaled(got, _proj_soc_batch(v), v))
+        v32 = v.float()
+        worst[f32] = max(worst[f32], row_scaled(proj_soc(v32), _proj_soc_batch(v32), v32))
+        calls.append(v.shape[0])
+        return got
+
+    soc.proj_soc = tapped
+    try:
+        cvar_solve(*args, cfg=cfg)
+    finally:
+        soc.proj_soc = proj_soc
+    emit({"phase": "soc_kernel_on_admm_rows", "config": "cvar_overtake", "B": BENCH_B,
+          "admm_iters": cfg.iters, "projections": len(calls), "rows_per_projection": calls[0],
+          "worst_row_scaled": {"float64": worst[f64], "float32": worst[f32]},
+          "tol_row_scaled": {"float64": bars[f64], "float32": bars[f32]}, **card})
+    if not (worst[f64] <= bars[f64] and worst[f32] <= bars[f32]):
+        raise AssertionError(f"proj_soc kernel disagrees with its plain version on the main "
+                             f"path's cone rows: {worst}")
+    if len(calls) != cfg.iters + 2 or calls[0] != BENCH_B * topo.totalu:
+        raise AssertionError(f"ADMM solve: {len(calls)} projections of {calls[0]} rows")
+
+    # ---- the main path: a batched cvar_solve at B=32768, f64 ------------------
+    # f64, not f32: the Woodbury correction cancels terms ~1e6 times larger than
+    # its result, and in f32 the ADMM diverges to NaN on this problem in the
+    # JAX package as in the port (scripts/torch_port_admm_chaos.py overtake_f32).
+    torch.cuda.synchronize()
+    K3.launches = 0
+    t0 = time.perf_counter()
+    x, u, s, st, aux = cvar_solve(*args, cfg=cfg)
+    u_host = u.cpu()
+    solve_s = time.perf_counter() - t0
+    launches = K3.launches
+    finite = all(bool(t.isfinite().all()) for t in (x, u_host, s, st.risk, aux["prim_res"],
+                                                    aux["J"]))
+    shapes_ok = (tuple(u.shape) == (BENCH_B, topo.totalu, d)
+                 and tuple(x.shape) == (BENCH_B, topo.totalx, n))
+    prof = profile_step(lambda: cvar_solve(*args, cfg=cfg)[1].cpu(), kernels=("proj_soc",))
+    k3_share = prof["kernel_device_ms"]["proj_soc"] / max(prof["device_busy_ms"], 1e-30)
+    emit({"phase": "admm_main_path", "config": "cvar_overtake", "B": BENCH_B, "N": 8, "NB": 2,
+          "m": 3, "ralpha": 0.9, "dtype": "float64", "admm_iters": cfg.iters,
+          "solve_ms": solve_s * 1e3, "solves_per_s": BENCH_B / solve_s,
+          "launches": launches, "launches_expected": cfg.iters + 2,
+          "finite": finite, "shapes_ok": shapes_ok,
+          "prim_res_p50": float(aux["prim_res"].median()),
+          "prim_res_max": float(aux["prim_res"].max()), "J_p50": float(aux["J"].median()),
+          "k3_device_ms": prof["kernel_device_ms"]["proj_soc"], "k3_share_of_device": k3_share,
+          "profile": {k: prof[k] for k in ("wall_ms_profiled", "device_busy_ms",
+                                           "device_idle_share", "device_ops", "top_device_ms")},
+          **card})
+    if not (finite and shapes_ok):
+        raise AssertionError("ADMM main path: non-finite outputs or wrong shapes")
+    if launches != cfg.iters + 2:
+        raise AssertionError(f"ADMM main path: {launches} proj_soc launches, expected "
+                             f"{cfg.iters + 2}")
+    del x, u, s, st, aux, args
+    torch.cuda.empty_cache()
+
+    # ---- the same solve in f64 on the card and on the CPU ---------------------
+    # Held after 30 and after 400 iterations. The bar is as wide as the
+    # reference's own reproducibility: the JAX package's jitted and eager runs
+    # of this solve part by 2.7e-8 in u after 30 iterations and 1.0e-7 after
+    # 400 on these states (scripts/torch_port_admm_chaos.py overtake 64).
+    cpu = torch.device("cpu")
+    _, args_cpu = admm_problem(cpu, 64, f64)
+    res = {}
+    for iters in (ADMM_EARLY_ITERS, ADMM_ITERS):
+        c = admm_cfg(iters)
+        on_card = cvar_solve(*args_cpu, cfg=c)          # moves the CPU-built inputs to the card
+        on_cpu = cvar_solve(*args_cpu, cfg=c, device="cpu")
+        res[iters] = ((on_card[1].cpu() - on_cpu[1]).abs().max().item(),
+                      (on_card[0].cpu() - on_cpu[0]).abs().max().item())
+    emit({"phase": "admm_vs_cpu", "config": "cvar_overtake", "B": 64, "dtype": "float64",
+          "max_abs_du": {str(k): v[0] for k, v in res.items()},
+          "max_abs_dx": {str(k): v[1] for k, v in res.items()}, "tol_du": 1e-7, **card})
+    bad = [k for k, v in res.items() if not v[0] <= 1e-7]
+    if bad:
+        raise AssertionError(f"ADMM f64 solve on the card vs CPU: |du| > 1e-7 after {bad} "
+                             "iterations")
+    return {"name": "proj_soc", "route": "cuda",
+            "source": "belief_planning_tpu_torch/csrc/proj_soc.cu",
+            "replaces": "belief_planning_tpu/ops/pallas_kernels.py:42",
+            "launches": launches, "dtype": "float64", **timing[f64], "library_ms": None}
+
+
+def phase_cost(plan, nFx, nFu, phase, lanes):
+    """Least bytes (f32) and operations of one phase kernel at ``lanes``:
+    the inputs it reads once and t0 written; operations counted from the
+    kernel's loops (multiply-add = 2) per stage: the barrier weights and the
+    Riccati step, for phase 1 also the linear sweep and the rollout."""
+    topo = plan.topo
+    nx, nu = topo.n, topo.d
+    nd, nc, nf = nx + nu, nFx + 1, nFu
+    U, X = topo.totalu, topo.totalx
+    nleaf = len(plan.leaf_ids)
+    elems = (U * (2 * nx * nx + 2 * nu * nu + nx * nu + nx) + nleaf * nx * nx + 1
+             + U * (4 * nc + 2 * nf) + 1)
+    riccati = (3 * nc + 2 * nx * nx + 3 * (nc - 1) * nx * nx + 2 * nx * nx + 3 * nf * nu * nu
+               + 2 * nu * nx * nx + 2 * nu * nu * nx + nu * nu * (2 * nx + 4)
+               + 4 * nu * nx * nx + 2 * nu * nd * nu + 2 * nx * nx * nx
+               + 2 * nd * nd * nu + 2 * nx * nx * nx + 3 * nx * nx + 2 * nd * nd
+               + nx * nd * 2 * nu + 12)
+    per_stage = riccati + 2 * (2 * nc + nf) + 3 * nc + nu * nd + nu * nu
+    if phase == 1:
+        elems += U * (nx + nu) + nleaf * nx
+        per_stage += (nu * (2 * nx + 2) + nu * 2 * nu + nd * (2 * nd + 2 * nu) + nx
+                      + nu * 2 * nd + nd * 2 * nd + nx * 2 * nu + nx + nu)
+    return elems * 4 * lanes, per_stage * U * lanes
+
+
+def run_k1_phases(dev, card, K, k1_ms):
+    """The K1 profile: its phase kernels against their plain versions, then
+    the profile script's timing at B=2048 and B=32768; returns the phase
+    kernels' ``kernels`` entry."""
+    import importlib.util
+
+    from belief_planning_tpu_torch.solvers import tree_qp_pl
+    from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_profile_ipm_kernel",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                     "torch_port_profile_ipm_kernel.py"))
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    cfg = QPIPMConfig(iters=12)
+    nFx, nFu = 4, 4
+
+    errs = {}
+    for phase in (0, 1):
+        plan, _, su = qp_case(dev, 1024, torch.float64, cfg)
+        mtot = float(plan.topo.totalu * (2 * (nFx + 1) + nFu))
+        got = tree_qp_pl.phase_step(plan, cfg, nFx, nFu, mtot, phase)(*su.const_args, *su.carry0)
+        torch.cuda.synchronize()
+        ref = tree_qp_pl.make_phase(plan, cfg, nFx, nFu, mtot, phase)(*su.const_args, *su.carry0)
+        scaled = ((got - ref).abs().max() / ref.abs().max()).item()
+        errs[phase] = (got - ref).abs().max().item()
+        emit({"phase": "k1_phases_vs_plain", "k1_phase": phase, "B": 1024, "dtype": "float64",
+              "worst_scaled": scaled, "max_abs_err": errs[phase], "tol_scaled": F64_TOL, **card})
+        if not scaled <= F64_TOL:
+            raise AssertionError(f"K1 phase {phase} kernel disagrees with its plain version: "
+                                 f"{scaled:.3e} > {F64_TOL:.0e}")
+
+    # phases 0 and 1 at the profile path's shapes, on its own (f32) inputs:
+    # f32 held to the accuracy bar against the plain version in f64 on the
+    # upcast inputs, and at B=32768 the f64 kernel against it at 1e-10
+    for B in (2048, BENCH_B):
+        plan, nFx_, nFu_, mtot, ca, c0 = prof.prep_inputs(B, dev, cfg)
+        up = [t.double() for t in (*ca, *c0)]
+        for phase in (0, 1):
+            r64 = tree_qp_pl.make_phase(plan, cfg, nFx_, nFu_, mtot, phase)(*up)
+            got = tree_qp_pl.phase_step(plan, cfg, nFx_, nFu_, mtot, phase)(*ca, *c0)
+            ref = tree_qp_pl.make_phase(plan, cfg, nFx_, nFu_, mtot, phase)(*ca, *c0)
+            e_k = (got.double() - r64).abs().max().item()
+            e_p = (ref.double() - r64).abs().max().item()
+            mag = r64.abs().max().item()
+            bar = F32_ERR_RATIO * e_p + F32_FLOOR * mag
+            line = {"phase": "k1_phases_vs_plain", "k1_phase": phase, "B": B,
+                    "dtype": "float32", "err_vs_f64": {"kernel": e_k, "plain": e_p, "bar": bar}}
+            if B == BENCH_B:
+                g64 = tree_qp_pl.phase_step(plan, cfg, nFx_, nFu_, mtot, phase)(*up)
+                scaled = ((g64 - r64).abs().max() / mag).item()
+                line["float64"] = {"worst_scaled": scaled, "tol_scaled": F64_TOL}
+            emit({**line, **card})
+            if e_k > bar:
+                raise AssertionError(f"K1 phase {phase} f32 kernel less accurate than its plain "
+                                     f"version (B={B}): {e_k:.3e} > {bar:.3e}")
+            if B == BENCH_B and not scaled <= F64_TOL:
+                raise AssertionError(f"K1 phase {phase} kernel disagrees with its plain version "
+                                     f"(f64, B={B}): {scaled:.3e} > {F64_TOL:.0e}")
+        del up, ca, c0
+    torch.cuda.empty_cache()
+
+    # the profile path: every phase kernel, launched by the profile script
+    # (phases 0 and 1 count as phase launches; phase 2 is the main kernel,
+    # launched also by the one main-path step of the script's input prep)
+    reps = 12
+    runs = {2048: 8, BENCH_B: 3}
+    K.phase_launches = K.launches = 0
+    t = {B: prof.profile_phases(B, dev, reps, times) for B, times in runs.items()}
+    launches, full_launches = K.phase_launches, K.launches
+    expected = sum(2 * (1 + times * reps) for times in runs.values())
+    full_expected = sum(cfg.iters + 1 + times * reps for times in runs.values())
+    for B, tb in t.items():
+        per = {k: v / reps for k, v in tb.items()}
+        emit({"phase": "k1_phases", "B": B, "dtype": "float32", "reps": reps,
+              "per_iter_ms": per, "linear_forward_ms": per["kkt1"] - per["factor"],
+              "bookkeeping_second_solve_ms": per["full"] - per["kkt1"],
+              "k1_kernel_time_ms_B32768": k1_ms, "summary": prof.summary_lines(B, reps, tb),
+              **card})
+    if full_launches != full_expected:
+        raise AssertionError(f"K1 profile: {full_launches} full-iteration launches, expected "
+                             f"{full_expected}")
+    if launches != expected:
+        raise AssertionError(f"K1 profile: {launches} phase-kernel launches, expected {expected}")
+
+    # the kernels line's entry: phase 0 (the factor) at the profile's batch
+    plan, nFx_, nFu_, mtot, ca, c0 = prof.prep_inputs(2048, dev, cfg)
+    plain = tree_qp_pl.make_phase(plan, cfg, nFx_, nFu_, mtot, 0)
+    plain_ms = cuda_ms(lambda: plain(*ca, *c0), reps=3)
+    nbytes, flops = phase_cost(plan, nFx_, nFu_, 0, 2048)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FLOPS["float32"] * 1e3
+    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    bounds = {}
+    for B in runs:
+        for ph in (0, 1):
+            b_, f_ = phase_cost(plan, nFx_, nFu_, ph, B)
+            bounds[f"B{B}_phase{ph}"] = max(b_ / H100_BYTES_PER_S, f_ / H100_FLOPS["float32"]) * 1e3
+    emit({"phase": "k1_phases_bound", "bound_ms": bounds, "plain_ms_phase0_B2048": plain_ms,
+          **card})
+    return {"name": "tree_qp_phase", "route": "cuda",
+            "source": "belief_planning_tpu_torch/csrc/tree_qp_ipm_iter.cu",
+            "replaces": "scripts/profile_ipm_kernel.py:237",
+            "launches": launches, "max_abs_err": max(errs.values()),
+            "ms": t[2048]["factor"] / reps, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -571,6 +933,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from belief_planning_tpu_torch.controllers.branch_mpc import make_branch_mpc_batched_step
+    from belief_planning_tpu_torch.ops import soc
     from belief_planning_tpu_torch.solvers import cvar_pl, tree_qp_pl
     from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
 
@@ -584,9 +947,10 @@ def main() -> int:
     emit({"phase": "device", **card, "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # ---- 1. build: both kernels, one nvcc each, started together -----------
+    # ---- 1. build: every kernel source, one nvcc each, started together -----
     K = tree_qp_pl.KERNEL
     K2 = cvar_pl.KERNEL
+    K3 = soc.KERNEL
     errors = []
 
     def build(kernel):
@@ -595,7 +959,7 @@ def main() -> int:
         except Exception as e:          # re-raised below, on the main thread
             errors.append(e)
 
-    threads = [threading.Thread(target=build, args=(k,)) for k in (K, K2)]
+    threads = [threading.Thread(target=build, args=(k,)) for k in (K, K2, K3)]
     t_build = time.perf_counter()
     for th in threads:
         th.start()
@@ -612,6 +976,10 @@ def main() -> int:
               if "registers" in ln or "spill" in ln or "stack frame" in ln]
     emit({"phase": "build_cvar", "seconds": round(K2.build_seconds, 3), "ptxas": ptxas2,
           "wall_seconds_both": round(build_wall, 3), **card})
+    ptxas3 = [ln.strip() for ln in K3.build_log.splitlines()
+              if "registers" in ln or "spill" in ln or "stack frame" in ln]
+    emit({"phase": "build_soc", "seconds": round(K3.build_seconds, 3), "ptxas": ptxas3,
+          "wall_seconds_all": round(build_wall, 3), **card})
 
     # ---- 2. kernel vs plain version on the card ----------------------------
     cfg = QPIPMConfig(iters=8, gondzio=2)
@@ -810,7 +1178,11 @@ def main() -> int:
     # ---- 5. the CVaR slice ----------------------------------------------------
     cvar_lines = run_cvar_phases(dev, card, K2)
 
-    # ---- 6. kernels line, card line, result ------------------------------------
+    # ---- 6. the cone-ADMM slice (K3) and the K1 profile (K4) --------------------
+    soc_line = run_admm_phases(dev, card, K3)
+    phase_line = run_k1_phases(dev, card, K, k_ms)
+
+    # ---- 7. kernels line, card line, result ------------------------------------
     emit({"kernels": [{
         "name": "tree_qp_ipm_iter",
         "route": "cuda",
@@ -823,7 +1195,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }, cvar_lines]})
+    }, cvar_lines, soc_line, phase_line]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, **card})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,6 +1,7 @@
-"""The CUDA kernels against their plain PyTorch versions on the card, and
-the wrappers' checks. Needs a CUDA card (skips without one) and no JAX, so
-on a machine with the card and without JAX it runs on its own:
+"""The CUDA kernels (K1 with its profile phases, K2, the SOC projection)
+against their plain PyTorch versions on the card, and the wrappers' checks.
+Needs a CUDA card (skips without one) and no JAX, so on a machine with the
+card and without JAX it runs on its own:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
@@ -18,10 +19,11 @@ from belief_planning_tpu_torch.models.policies import (
     merge_policy_set,
 )
 from belief_planning_tpu_torch.models.predictive import highway_model, merge_model
+from belief_planning_tpu_torch.ops import soc
 from belief_planning_tpu_torch.presets import init_branch_mpc
 from belief_planning_tpu_torch.solvers import cvar_pl
 from belief_planning_tpu_torch.solvers import tree_qp_pl as tpl
-from belief_planning_tpu_torch.solvers.cvar import build_cvar_plan
+from belief_planning_tpu_torch.solvers.cvar import _proj_soc_batch, build_cvar_plan
 from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig
 from belief_planning_tpu_torch.solvers.layout import _to_bl, cost_to_bl
 from belief_planning_tpu_torch.solvers.tree_qp import assemble_stage_cost, build_stage_plan
@@ -123,6 +125,19 @@ def cvar_setup(kind, dtype=torch.float64, device="cpu", N=3, NB=1, B=4, gondzio=
         params.bx if bx is None else bl(bx), params.Fu, params.bu, cfg,
         S_bl=None if S is None else bl(S), dh0_floor=floor)
     return cplan, cfg, su, cvar_pl.make_cvar_iteration(cplan, cfg, su.dims)
+
+
+def soc_rows(rng, k=8, rows=64):
+    """Random rows for the SOC projection and its tie rows."""
+    v = rng.normal(size=(rows, k)) * rng.uniform(0.1, 10.0, (rows, 1))
+    ties = np.zeros((6, k))
+    ties[0, :3] = [5.0, 3.0, 4.0]       # ‖u‖ = t exactly: kept
+    ties[1, :3] = [-5.0, 3.0, 4.0]      # ‖u‖ = −t: zeroed
+    ties[2, 0] = -2.0                   # u = 0, t < 0: zeroed
+    ties[3, 1:] = rng.normal(size=k - 1)   # t = 0, u ≠ 0: halved
+    # ties[4]: t = 0, u = 0 (kept); ties[5]: u = 0, t > 0 (kept)
+    ties[5, 0] = 1.5
+    return np.concatenate([v, ties])
 
 
 def _setup(dtype, device):
@@ -237,3 +252,59 @@ def test_cvar_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         with pytest.raises(ValueError):
             su.step_fn(*bad)
     assert cvar_pl.KERNEL.launches == before
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-14), (torch.float32, 1e-6)])
+def test_soc_kernel_matches_plain(cuda_device, dtype, tol):
+    """SOC projection: every row within ``tol`` of its input row's magnitude
+    (f64 1e-14, f32 1e-6), the tie rows kept or zeroed exactly; one launch."""
+    v = torch.as_tensor(soc_rows(np.random.default_rng(60), rows=4000), dtype=dtype,
+                        device=cuda_device)
+    before = soc.KERNEL.launches
+    got = soc.proj_soc(v)
+    assert soc.KERNEL.launches == before + 1
+    ref = _proj_soc_batch(v)
+    row_mag = v.abs().amax(1, keepdim=True).clamp(min=1e-300)
+    assert bool(((got - ref).abs() <= tol * row_mag).all())
+    assert torch.equal(got[-6:-3], ref[-6:-3])
+
+
+def test_soc_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    v = torch.ones((8, 8), dtype=torch.float64, device=cuda_device)
+    before = soc.KERNEL.launches
+    for bad in (v.t(), v[:, :1].expand(8, 8), v.half(), v[:0], v.reshape(4, 2, 8),
+                torch.ones((8, 17), dtype=torch.float64, device=cuda_device)):
+        with pytest.raises(ValueError):
+            soc.proj_soc(bad)
+    assert soc.KERNEL.launches == before
+
+
+@pytest.mark.parametrize("phase", [0, 1])
+def test_phase_kernel_matches_plain_f64(cuda_device, phase):
+    """The K1 profile's phase 0 (Σ K + Σ Hinv) and phase 1 (Σ dx + Σ du)
+    within 1e-10 of each value's magnitude; one launch each."""
+    su, _ = _setup(torch.float64, cuda_device)
+    plan = build_stage_plan(build_topology(N, NB, 3, 4, 2))
+    cfg = QPIPMConfig(iters=6, gondzio=GONDZIO)
+    mtot = float(plan.topo.totalu * 14)
+    before = tpl.KERNEL.phase_launches
+    got = tpl.phase_step(plan, cfg, 4, 4, mtot, phase)(*su.const_args, *su.carry0)
+    assert tpl.KERNEL.phase_launches == before + 1
+    ref = tpl.make_phase(plan, cfg, 4, 4, mtot, phase)(*su.const_args, *su.carry0)
+    err = ((got - ref).abs().max() / ref.abs().max()).item()
+    assert err <= ITER_TOL, (phase, err)
+
+
+def test_phase_2_is_the_main_kernel(cuda_device):
+    """The profile's phase 2 launches the main path's kernel, counted as its
+    launches, with the main path's result."""
+    su, _ = _setup(torch.float64, cuda_device)
+    plan = build_stage_plan(build_topology(N, NB, 3, 4, 2))
+    cfg = QPIPMConfig(iters=6, gondzio=GONDZIO)
+    mtot = float(plan.topo.totalu * 14)
+    before = (tpl.KERNEL.launches, tpl.KERNEL.phase_launches)
+    got = tpl.phase_step(plan, cfg, 4, 4, mtot, 2)(*su.const_args, *su.carry0)
+    assert (tpl.KERNEL.launches, tpl.KERNEL.phase_launches) == (before[0] + 1, before[1])
+    want = tpl.fused_iteration(plan, cfg, 4, 4, mtot)(*su.const_args, *su.carry0)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -1,7 +1,7 @@
 """The port stands alone: no file of ``belief_planning_tpu_torch`` (nor
-``chip_smoke.py``) imports ``jax``, ``jaxlib`` or ``belief_planning_tpu``;
-importing the package loads no jax; and its entry point runs on CUDA unless
-the caller asks for the CPU."""
+``chip_smoke.py`` or the card's profile script) imports ``jax``, ``jaxlib``
+or ``belief_planning_tpu``; importing the package loads no jax; and its entry
+points run on CUDA unless the caller asks for the CPU."""
 
 import ast
 import pathlib
@@ -20,7 +20,8 @@ torch.set_num_threads(1)
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "scripts" / "torch_port_profile_ipm_kernel.py"]
 
 
 def _imported_roots(path):
@@ -99,3 +100,33 @@ def test_cvar_entry_point_defaults_to_cuda():
             make_cvar_mpc_batched_step(model, params, 0.1, use_S=True)
     _, _, init, _ = make_cvar_mpc_batched_step(model, params, 0.1, use_S=True, device="cpu")
     assert init(2).u_lin.device.type == "cpu"
+
+
+def test_cvar_solve_defaults_to_cuda():
+    from belief_planning_tpu_torch.models.policies import cast_params, highway_policy_set
+    from belief_planning_tpu_torch.models.predictive import highway_model
+    from belief_planning_tpu_torch.presets import init_branch_mpc
+    from belief_planning_tpu_torch.solvers.cvar import CVaRConfig, build_cvar_plan, cvar_solve
+    from belief_planning_tpu_torch.tree.engine import build_tree
+    from belief_planning_tpu_torch.tree.topology import build_topology
+    from belief_planning_tpu_torch.utils.config import BranchConstants
+
+    cons = BranchConstants()
+    xRef = np.array([0.5, 1.8, 15.0, 0.0])
+    pset = highway_policy_set(cons, xRef)
+    model = highway_model(cons, pset, N=3, dt=0.1)
+    params = init_branch_mpc(4, 2, 3, 1, xRef, am=6.0, rm=0.3, N_lane=4, W=cons.W)
+    topo = build_topology(3, 1, model.m, 4, 2)
+    x = torch.tensor([[0.0, 1.8, 20.0, 0.0]], dtype=torch.float64)
+    z = torch.tensor([[9.0, 1.8, 17.0, 0.0]], dtype=torch.float64)
+    ts = build_tree(model, topo, x, z, torch.zeros(1, topo.totalu, 2, dtype=torch.float64),
+                    cast_params(pset.params, torch.float64, "cpu"))
+    args = (build_cvar_plan(topo), ts, params.Q, params.R, params.Qslack, params.xRef, 0.9,
+            params.Fx, params.bx, params.Fu, params.bu, x)
+    cfg = CVaRConfig(iters=1)
+    if torch.cuda.is_available():
+        assert cvar_solve(*args, cfg=cfg)[1].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cvar_solve(*args, cfg=cfg)
+    assert cvar_solve(*args, cfg=cfg, device="cpu")[1].device.type == "cpu"

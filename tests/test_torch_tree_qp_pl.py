@@ -104,6 +104,72 @@ def test_solve_matches_jax(case):
     assert _scaled(aux["gaps"].numpy(), jaux["gaps"]) < 1e-8
 
 
+def _jax_profile_phase(jplan, cfg, phase):
+    """The JAX profile's phase body (``scripts/profile_ipm_kernel.py``,
+    ``make_phase_fn``) assembled from the JAX package's level blocks, in the
+    inputs' dtype: ``body(consts..., carry...)`` → t0 (1, T) of phase 0
+    (Σ K + Σ Hinv) or 1 (Σ dx + Σ du). The carry and its 1e-30 nudge of
+    sl1, which only chain the profile's scan, are left out."""
+    levels = jpl.build_levels(jplan)
+    n, d, m = jplan.topo.n, jplan.topo.d, jplan.topo.m
+
+    def cheap_touch(blocks):
+        acc = None
+        for a in blocks:
+            s = jnp.sum(a, axis=tuple(range(a.ndim - 1)), keepdims=False)
+            s = s.reshape(1, -1) if s.ndim == 1 else s
+            acc = s if acc is None else acc + s
+        return acc
+
+    def body(Qx2, qx, Ru2, qu, Dab2, qterm, Pterm2, slack_lin, slack_quad, A_st, B_st, dh, b1,
+             Fx, Fu, bu, x_c, u_c, s_c, sl1, lam1, sl2_, lam2_, sl3, lam3):
+        dtype, T = x_c.dtype, x_c.shape[-1]
+        w_max_eff = min(cfg.w_max, 1e6)
+        FxFx = Fx[:, :, None] * Fx[:, None, :]
+        FuFu = Fu[:, :, None] * Fu[:, None, :]
+        clampw = lambda w: jnp.minimum(w, w_max_eff)
+        w1 = clampw(lam1 / sl1)
+        w2 = clampw(lam2_ / sl2_)
+        w3 = clampw(lam3 / sl3)
+        kap = slack_quad + w1 + w3 + cfg.reg
+        coefs = w1 - w1 * w1 / kap
+        eye_n = jnp.eye(n, dtype=dtype)[None, :, :, None]
+        out0 = coefs[:, 0:1][:, :, None, :] * dh[:, :, None, :] * dh[:, None, :, :]
+        Qx2_eff = Qx2 + out0 + jnp.sum(
+            coefs[:, 1:][:, :, None, None, :] * FxFx[None, :, :, :, None], axis=1) \
+            + cfg.reg * eye_n
+        Ru2_eff = Ru2 + cfg.reg * jnp.eye(d, dtype=dtype)[None, :, :, None]
+        Ru2_eff = Ru2_eff + jnp.sum(w2[:, :, None, None, :] * FuFu[None, :, :, :, None], axis=1)
+        Pterm2_eff = Pterm2 + cfg.reg * eye_n
+        K_l, Hinv_l, Acl_l = jpl._factor_blocks(levels, Qx2_eff, Dab2, Ru2_eff, Pterm2_eff,
+                                                A_st, B_st, n, d, m, cfg.reg)
+        if phase == 0:
+            return cheap_touch(list(K_l) + list(Hinv_l))
+        kff_l = jpl._linear_blocks(levels, K_l, Hinv_l, Acl_l, B_st, qx, qu, qterm, n, d, m)
+        dx, du = jpl._forward_blocks(levels, K_l, Hinv_l, Acl_l, B_st, kff_l, n, d, m, dtype, T)
+        return cheap_touch([dx, du])
+
+    return jax.jit(body)
+
+
+@pytest.mark.parametrize("carry", ["init", "iter4"])
+@pytest.mark.parametrize("phase", [0, 1])
+def test_phase_matches_jax_profile(case, phase, carry):
+    """The plain phases (the phase kernels' plain version) against the JAX
+    profile's phase body on the same constants and carry: t0 within 1e-10
+    of its magnitude."""
+    su, p = case["su"], case["params"]
+    nFx, nFu = p.Fx.shape[0], p.Fu.shape[0]
+    mtot = float(case["plan"].topo.totalu * (2 * (nFx + 1) + nFu))
+    cy = case["carries"][carry]
+    got = tpl.make_phase(case["plan"], case["cfg"], nFx, nFu, mtot, phase)(*su.const_args, *cy)
+    jcfg = JQPIPMConfig(iters=6, gondzio=GONDZIO)
+    jargs = [case["jconsts"][k] for k in jpl.CONST_ORDER] + [np.asarray(c.numpy()) for c in cy]
+    want = _jax_profile_phase(case["jplan"], jcfg, phase)(*jargs)
+    err = _scaled(got.numpy(), want)
+    assert err <= ITER_TOL, (phase, carry, err)
+
+
 @pytest.mark.parametrize("d", [1, 2, 3])
 def test_small_inv_closed_form(d):
     rng = np.random.default_rng(d)
