@@ -1,9 +1,16 @@
-"""Batched branch-MPC controller, QP path (the reference package's
-``controllers/branch_mpc.py``, batch-last step).
+"""Branch-MPC controllers, QP path (the reference package's
+``controllers/branch_mpc.py``).
 
 One receding-horizon step over a batch of independent trees: warm-start
-shift → tree build → stage-cost assembly (batch-leading) → fused IPM in the
-batch-last layout (the CUDA kernel on the card) → optional f64 restart.
+shift → tree build → stage-cost assembly (batch-leading) → tree-QP IPM.
+Two steps share that preparation:
+
+- :func:`make_branch_mpc_batched_step` solves with the fused IPM in the
+  batch-last layout (the CUDA kernel on the card), with an optional f64
+  restart;
+- :func:`make_branch_mpc_step` solves each tree with the independently
+  written IPM ``solvers/tree_qp_ipm.qp_ipm_solve`` (the reference's
+  per-tree step under ``vmap``), the fused path's cross-check.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ from belief_planning_tpu_torch.models.policies import cast_params
 from belief_planning_tpu_torch.models.predictive import PredictiveModel
 from belief_planning_tpu_torch.solvers.layout import _from_bl, _to_bl, cost_to_bl
 from belief_planning_tpu_torch.solvers.tree_qp import assemble_stage_cost, build_stage_plan
-from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
+from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig, qp_ipm_solve
 from belief_planning_tpu_torch.solvers.tree_qp_pl import qp_ipm_solve_pl
 from belief_planning_tpu_torch.tree.engine import build_tree, shift_warm_start
 from belief_planning_tpu_torch.tree.topology import TreeTopology, build_topology
@@ -44,10 +51,87 @@ class SolveResult(NamedTuple):
     z: Any            # (Bt, totalu, n) obstacle nodes
     prim_res: Any     # (Bt,) primal residual
     feasible: Any     # (Bt,) bool
+    gap: Any          # (Bt,) duality gap of the returned iterate
 
 
 def _cast(tree, dtype):
     return type(tree)(*(a.to(dtype) for a in tree))
+
+
+def _init_carry_fn(topo: TreeTopology, d: int, dev):
+    def init_carry(batch: int, dtype=torch.float32) -> MPCCarry:
+        z = lambda *shape: torch.zeros((batch,) + shape, dtype=dtype, device=dev)
+        return MPCCarry(
+            u_lin=z(topo.totalu, d), p=z(topo.n_branches, topo.m), old_input=z(d),
+            initialized=torch.zeros(batch, dtype=torch.bool, device=dev))
+    return init_carry
+
+
+def _new_carry(u, p):
+    return MPCCarry(u_lin=u, p=p, old_input=u[:, 0].clone(),
+                    initialized=torch.ones(u.shape[0], dtype=torch.bool, device=u.device))
+
+
+def _prep_qp(model, topo, params, variant, replicate_quirks, pd, dev, carry: MPCCarry, x, z,
+             xRef, policy_params):
+    """Warm-start shift, tree build and stage-cost assembly in dtype ``pd``."""
+    pp = cast_params(policy_params, pd, dev)
+    u_lin = torch.where(carry.initialized[:, None, None],
+                        shift_warm_start(topo, carry.u_lin, carry.p),
+                        torch.zeros_like(carry.u_lin))
+    ts = build_tree(model, topo, x.to(pd), z.to(pd), u_lin.to(pd), pp)
+    cost = assemble_stage_cost(topo, ts, params.Q, params.R, params.Qf, params.dR, params.Qslack,
+                               xRef.to(pd), carry.old_input.to(pd), variant=variant,
+                               replicate_quirks=replicate_quirks)
+    return ts, cost
+
+
+def make_branch_mpc_step(
+    model: PredictiveModel,
+    params: BranchMPCParams,
+    variant: str = "prox",
+    replicate_quirks: bool = True,
+    feas_tol: float = 1e-3,
+    solver: str = "ipm",
+    ipm: QPIPMConfig = QPIPMConfig(),
+    prep_dtype=None,
+    device=None,
+) -> Tuple[TreeTopology, Any, Any]:
+    """Build ``(topo, init_carry, step)``: the reference's per-tree step,
+    batched over trees.
+
+    ``step(carrys, xs, zs, xRefs, policy_params) -> (carrys, SolveResult)``
+    takes batch-leading tensors (``xs (Bt, n)``) and policy params shared by
+    all trees, and solves each tree's QP with :func:`qp_ipm_solve` (IPM in
+    the solve's dtype, the input's). ``solver="admm"`` (the reference's
+    OSQP-equivalent ADMM) is not ported. ``prep_dtype``: optional wider dtype
+    for the tree build and cost assembly only. ``device``: ``None`` =
+    ``"cuda"`` (raises without CUDA); pass ``"cpu"`` to run on the CPU.
+    """
+    if solver != "ipm":
+        raise NotImplementedError(
+            f"solver={solver!r}: only the IPM is ported; the tree-QP ADMM (admm_solve) and "
+            "its carried duals are ROADMAP.md Queue A item 7")
+    dev = resolve_device(device)
+    topo = build_topology(params.N, params.NB, model.m, params.n, params.d)
+    plan = build_stage_plan(topo)
+
+    def step(carrys: MPCCarry, xs, zs, xRefs, policy_params):
+        dt_in = xs.dtype
+        pd = prep_dtype if prep_dtype is not None else dt_in
+        with record_function("bp.prep"):
+            ts, cost = _prep_qp(model, topo, params, variant, replicate_quirks, pd, dev, carrys,
+                                xs, zs, xRefs, policy_params)
+        ts, cost = _cast(ts, dt_in), _cast(cost, dt_in)
+        with record_function("bp.solve"):
+            x_nodes, u, s, info = qp_ipm_solve(plan, cost, ts, params.Fx, params.bx, params.Fu,
+                                               params.bu, xs, carrys.old_input, ipm, device=dev)
+        res = SolveResult(xPred=x_nodes, uPred=u, slack=s, w=ts.w, p=ts.p, x_lin=ts.x_lin,
+                          z=ts.z, prim_res=info["prim_res"],
+                          feasible=info["prim_res"] < feas_tol, gap=info["gap"])
+        return _new_carry(u, ts.p), res
+
+    return topo, _init_carry_fn(topo, params.d, dev), step
 
 
 def make_branch_mpc_batched_step(
@@ -86,30 +170,10 @@ def make_branch_mpc_batched_step(
     topo = build_topology(params.N, params.NB, model.m, params.n, params.d)
     plan = build_stage_plan(topo)
     Fx, bx, Fu, bu = params.Fx, params.bx, params.Fu, params.bu
-    Q, R, Qf, dR, Qslack = params.Q, params.R, params.Qf, params.dR, params.Qslack
     if refine_f64 > 0 and prep_dtype is None:
         prep_dtype = torch.float64
     # the restart keeps the tuned default start (μ0=10, sl_min=0.1)
     rcfg = refine_cfg if refine_cfg is not None else QPIPMConfig(iters=refine_f64)
-
-    def init_carry(batch: int, dtype=torch.float32) -> MPCCarry:
-        z = lambda *shape: torch.zeros((batch,) + shape, dtype=dtype, device=dev)
-        return MPCCarry(
-            u_lin=z(topo.totalu, params.d), p=z(topo.n_branches, topo.m),
-            old_input=z(params.d),
-            initialized=torch.zeros(batch, dtype=torch.bool, device=dev))
-
-    def prep(carry: MPCCarry, x, z, xRef, policy_params):
-        pd = prep_dtype if prep_dtype is not None else x.dtype
-        pp = cast_params(policy_params, pd, dev)
-        u_lin = torch.where(carry.initialized[:, None, None],
-                            shift_warm_start(topo, carry.u_lin, carry.p),
-                            torch.zeros_like(carry.u_lin))
-        ts = build_tree(model, topo, x.to(pd), z.to(pd), u_lin.to(pd), pp)
-        cost = assemble_stage_cost(topo, ts, Q, R, Qf, dR, Qslack, xRef.to(pd),
-                                   carry.old_input.to(pd), variant=variant,
-                                   replicate_quirks=replicate_quirks)
-        return ts, cost
 
     def solve(ts, cost, dtype, x_warm, u_warm, cfg, s_warm=None):
         ts = _cast(ts, dtype)
@@ -124,7 +188,9 @@ def make_branch_mpc_batched_step(
         # profiler spans (bp.prep / bp.solve / bp.refine_f64): the per-layer
         # times of a step under torch.profiler; near-free when it is off
         with record_function("bp.prep"):
-            ts_p, cost_p = prep(carrys, xs, zs, xRefs, policy_params)
+            ts_p, cost_p = _prep_qp(model, topo, params, variant, replicate_quirks,
+                                    prep_dtype if prep_dtype is not None else dt_in, dev,
+                                    carrys, xs, zs, xRefs, policy_params)
         ts_b = _cast(ts_p, sd)
         with record_function("bp.solve"):
             x_bl, u_bl, s_bl, info = solve(ts_b, cost_p, sd, _to_bl(ts_b.x_lin),
@@ -139,12 +205,10 @@ def make_branch_mpc_batched_step(
         u = _from_bl(u_bl).to(dt_in)
         s = _from_bl(s_bl).to(dt_in)
         prim = info["prim_res"].to(dt_in)
-        new_carry = MPCCarry(
-            u_lin=u, p=ts_b.p.to(dt_in), old_input=u[:, 0].clone(),
-            initialized=torch.ones(u.shape[0], dtype=torch.bool, device=u.device))
+        new_carry = _new_carry(u, ts_b.p.to(dt_in))
         res = SolveResult(xPred=x_nodes, uPred=u, slack=s, w=ts_b.w, p=ts_b.p,
                           x_lin=ts_b.x_lin, z=ts_b.z, prim_res=prim,
-                          feasible=prim < feas_tol)
+                          feasible=prim < feas_tol, gap=info["gap"].to(dt_in))
         return new_carry, res
 
-    return topo, init_carry, step
+    return topo, _init_carry_fn(topo, params.d, dev), step

@@ -1,25 +1,36 @@
-"""Batched nested-CVaR branch-MPC controller (the reference package's
-``controllers/cvar_mpc.py``, batch-last step).
+"""Nested-CVaR branch-MPC controllers (the reference package's
+``controllers/cvar_mpc.py``).
 
 One receding-horizon step over a batch of independent trees: warm-start
-shift → tree build → fused CVaR IPM in the batch-last layout (the CUDA
-kernel on the card) → optional f64 restart. With ``use_S`` the merge
-deployment's per-lane shear transform ``S`` and lane bounds ``bx`` ride the
-same kernel as per-lane constants.
+shift → tree build → CVaR IPM. With ``use_S`` the merge deployment's
+per-lane shear transform ``S`` and lane bounds ``bx`` enter the solve.
+
+- :func:`make_cvar_mpc_batched_step` solves with the fused CVaR IPM in the
+  batch-last layout (the CUDA kernel on the card), with an optional f64
+  restart;
+- :func:`make_cvar_mpc_step` solves each tree with the independently
+  written ``solvers/cvar_ipm.cvar_ipm_solve`` (the reference's per-tree
+  step under ``vmap``), with its optional barrier restart.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple, Optional
 
 import torch
 from torch.profiler import record_function
 
-from belief_planning_tpu_torch.controllers.branch_mpc import MPCCarry, _cast
+from belief_planning_tpu_torch.controllers.branch_mpc import (
+    MPCCarry,
+    _cast,
+    _init_carry_fn,
+    _new_carry,
+)
 from belief_planning_tpu_torch.models.policies import cast_params
 from belief_planning_tpu_torch.models.predictive import PredictiveModel
 from belief_planning_tpu_torch.solvers.cvar import build_cvar_plan
-from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig
+from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig, cvar_ipm_solve
 from belief_planning_tpu_torch.solvers.cvar_pl import cvar_ipm_solve_pl
 from belief_planning_tpu_torch.solvers.layout import _from_bl, _to_bl
 from belief_planning_tpu_torch.tree.engine import build_tree, shift_warm_start
@@ -38,6 +49,80 @@ class CVaRSolveResult(NamedTuple):
     z: Any            # (Bt, totalu, n) obstacle nodes
     J: Any            # (Bt,) objective
     gap: Any          # (Bt,) duality gap of the returned iterate
+
+
+def _prep_cvar(model, topo, pd, dev, carry: MPCCarry, x, z, policy_params):
+    """Warm-start shift and tree build in dtype ``pd``."""
+    u_lin = torch.where(carry.initialized[:, None, None],
+                        shift_warm_start(topo, carry.u_lin, carry.p),
+                        torch.zeros_like(carry.u_lin))
+    return build_tree(model, topo, x.to(pd), z.to(pd), u_lin.to(pd),
+                      cast_params(policy_params, pd, dev))
+
+
+def make_cvar_mpc_step(
+    model: PredictiveModel,
+    params: BranchMPCParams,
+    ralpha: float,
+    ipm: CVaRIPMConfig = CVaRIPMConfig(iters=80),
+    replicate_quirks: bool = True,
+    use_S: bool = False,
+    prep_dtype=None,
+    restart: int = 0,
+    restart_cfg: Optional[CVaRIPMConfig] = None,
+    device=None,
+):
+    """Build ``(topo, cplan, init_carry, step)``: the reference's per-tree
+    step, batched over trees.
+
+    ``step(carrys, xs, zs, xRefs, policy_params, S=None, bx=None) ->
+    (carrys, CVaRSolveResult)`` takes batch-leading tensors and policy params
+    shared by all trees, and solves each tree with :func:`cvar_ipm_solve`.
+    With ``use_S``, ``S (Bt, n, n)`` and ``bx (Bt, nFx)`` are per tree; the
+    dh[0] floor applies to trees that are warm (``carry.initialized``).
+
+    ``restart``: iterations of a second solve started at the first solve's
+    primal with fresh centred duals (recovery from a Mehrotra jam); the
+    restart config flips the corrector count (4, or 2 if the solve used 4)
+    unless ``restart_cfg`` is given, and its result is kept per tree where
+    its gap is smaller. ``device``: ``None`` = ``"cuda"`` (raises without
+    CUDA); pass ``"cpu"`` to run on the CPU.
+    """
+    dev = resolve_device(device)
+    topo = build_topology(params.N, params.NB, model.m, params.n, params.d)
+    cplan = build_cvar_plan(topo, replicate_quirks=replicate_quirks)
+    rcfg = restart_cfg if restart_cfg is not None else dataclasses.replace(
+        ipm, iters=restart, gondzio=4 if ipm.gondzio != 4 else 2)
+
+    def step(carrys: MPCCarry, xs, zs, xRefs, policy_params, S=None, bx=None):
+        dt_in = xs.dtype
+        pd = prep_dtype if prep_dtype is not None else dt_in
+        with record_function("bp.prep"):
+            ts = _cast(_prep_cvar(model, topo, pd, dev, carrys, xs, zs, policy_params), dt_in)
+        S_used = S.to(dt_in) if (use_S and S is not None) else None
+        bx_used = params.bx if bx is None else bx.to(dt_in)
+
+        def solve(ts_, cfg):
+            return cvar_ipm_solve(cplan, ts_, params.Q, params.R, params.Qslack, xRefs, ralpha,
+                                  params.Fx, bx_used, params.Fu, params.bu, xs, S=S_used,
+                                  cfg=cfg, dh0_floor=carrys.initialized, device=dev)
+
+        with record_function("bp.solve"):
+            x_f, u_f, s_f, r_f, aux = solve(ts, ipm)
+        if restart > 0:
+            # the restart solves the same program: x_lin / u_lin feed only the
+            # start and the exact-equivalent per-cone scaling
+            with record_function("bp.restart"):
+                x2, u2, s2, r2, aux2 = solve(ts._replace(x_lin=x_f, u_lin=u_f), rcfg)
+            better = aux2["gap"] < aux["gap"]
+            pick = lambda a, b: torch.where(better.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+            x_f, u_f, s_f, r_f = pick(x2, x_f), pick(u2, u_f), pick(s2, s_f), pick(r2, r_f)
+            aux = {"J": pick(aux2["J"], aux["J"]), "gap": torch.minimum(aux2["gap"], aux["gap"])}
+        res = CVaRSolveResult(xPred=x_f, uPred=u_f, slack=s_f, risk=r_f, w=ts.w, p=ts.p, z=ts.z,
+                              J=aux["J"], gap=aux["gap"])
+        return _new_carry(u_f, ts.p), res
+
+    return topo, cplan, _init_carry_fn(topo, params.d, dev), step
 
 
 def make_cvar_mpc_batched_step(
@@ -81,21 +166,6 @@ def make_cvar_mpc_batched_step(
     rcfg = refine_cfg if refine_cfg is not None else CVaRIPMConfig(
         iters=refine_f64, gondzio=4 if ipm.gondzio != 4 else 2)
 
-    def init_carry(batch: int, dtype=torch.float32) -> MPCCarry:
-        z = lambda *shape: torch.zeros((batch,) + shape, dtype=dtype, device=dev)
-        return MPCCarry(
-            u_lin=z(topo.totalu, params.d), p=z(topo.n_branches, topo.m),
-            old_input=z(params.d),
-            initialized=torch.zeros(batch, dtype=torch.bool, device=dev))
-
-    def prep(carry: MPCCarry, x, z, policy_params):
-        pd = prep_dtype if prep_dtype is not None else x.dtype
-        u_lin = torch.where(carry.initialized[:, None, None],
-                            shift_warm_start(topo, carry.u_lin, carry.p),
-                            torch.zeros_like(carry.u_lin))
-        return build_tree(model, topo, x.to(pd), z.to(pd), u_lin.to(pd),
-                          cast_params(policy_params, pd, dev))
-
     def solve(ts, dtype, xRefs, S, bx, floor, cfg, x_warm=None, u_warm=None, s_warm=None,
               r_warm=None):
         ts = _cast(ts, dtype)
@@ -115,7 +185,8 @@ def make_cvar_mpc_batched_step(
         # profiler spans (bp.prep / bp.solve / bp.refine_f64): the per-layer
         # times of a step under torch.profiler; near-free when it is off
         with record_function("bp.prep"):
-            ts_p = prep(carrys, xs, zs, policy_params)
+            ts_p = _prep_cvar(model, topo, prep_dtype if prep_dtype is not None else dt_in, dev,
+                              carrys, xs, zs, policy_params)
         ts_b = _cast(ts_p, sd)
         floor = carrys.initialized
         with record_function("bp.solve"):
@@ -128,13 +199,11 @@ def make_cvar_mpc_batched_step(
                     u_warm=u_bl.to(f64), s_warm=s_bl.to(f64), r_warm=r_bl.to(f64))
             aux = {**aux, "J": aux2["J"], "gap": aux2["gap"]}
         u_f = _from_bl(u_bl).to(dt_in)
-        new_carry = MPCCarry(
-            u_lin=u_f, p=ts_b.p.to(dt_in), old_input=u_f[:, 0].clone(),
-            initialized=torch.ones(u_f.shape[0], dtype=torch.bool, device=u_f.device))
+        new_carry = _new_carry(u_f, ts_b.p.to(dt_in))
         res = CVaRSolveResult(
             xPred=_from_bl(x_bl).to(dt_in), uPred=u_f, slack=_from_bl(s_bl).to(dt_in),
             risk=_from_bl(r_bl).to(dt_in), w=ts_b.w, p=ts_b.p, z=ts_b.z,
             J=aux["J"].to(dt_in), gap=aux["gap"].to(dt_in))
         return new_carry, res
 
-    return topo, cplan, init_carry, step
+    return topo, cplan, _init_carry_fn(topo, params.d, dev), step

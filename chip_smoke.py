@@ -58,7 +58,24 @@ Phases, one JSON line each:
    bar, and in f64 at B=32768, 1e-10), then
    ``scripts/torch_port_profile_ipm_kernel.py``'s timing at B=2048 and
    B=32768 (``k1_phases``, per-iteration factor | factor + 1 solve | full);
-8. the ``kernels`` line (all four kernels), the ``nvidia-smi`` line, and
+8. slice 4, the shared-row probe (K5, ``csrc/shared_rows_probe.cu``) and
+   the per-tree IPM steps: ``build_shared_rows``; ``shared_rows_vs_plain``
+   (each mode against the plain version in f64 at the reference's size,
+   B=4096 × 25 nodes, and at the main path's width, B=32768 × 97 nodes,
+   64 chained products: fma and 3xtf32 at the f32 accuracy bar, bf16 within
+   2⁻⁷·Σ|Fx|·|cur| of every output and different from the f32 result);
+   ``shared_rows_time`` (``scripts/torch_port_mxu_probe.py`` at both
+   sizes: ms per launch, TFLOP/s and the bound per mode, with every launch
+   counted); ``qp_ipm_main_path`` (``make_branch_mpc_step`` on the QP
+   overtake, ``QPIPMConfig()`` defaults, f32, B=32768: a cold step, then a
+   timed warm step and a profiled one); ``qp_ipm_pin`` (K1 in f64 at
+   B=1024 against the per-tree step over two warm-carried steps at the main
+   path's IPM-8 with 2 correctors, u < 1e-7, x < 1e-6); ``cvar_ipm_main_path`` (``make_cvar_mpc_step``, IPM-80, f32,
+   B=32768, both CVaR configurations: solves/s, gap and J p50; the
+   overtake profiled over 8 iterations; one cold step each); ``cvar_ipm_pin`` (K2 in f64
+   against ``cvar_ipm_solve`` at B=64, IPM-60: first 10 gaps rtol 1e-8,
+   root u < 2e-2);
+9. the ``kernels`` line (all five kernels), the ``nvidia-smi`` line, and
    the result line.
 
 Every kernel source is built at the start, in parallel (one nvcc each).
@@ -375,6 +392,17 @@ def profile_step(run, kernels=()):
         out["kernel_device_ms"] = {k: sum(t for name, (_, t) in on_device.items() if k in name)
                                    for k in kernels}
     return out
+
+
+def load_script(name):
+    """A script of ``scripts/`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def run_cvar_phases(dev, card, K2):
@@ -815,17 +843,10 @@ def run_k1_phases(dev, card, K, k1_ms):
     """The K1 profile: its phase kernels against their plain versions, then
     the profile script's timing at B=2048 and B=32768; returns the phase
     kernels' ``kernels`` entry."""
-    import importlib.util
-
     from belief_planning_tpu_torch.solvers import tree_qp_pl
     from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
 
-    spec = importlib.util.spec_from_file_location(
-        "torch_port_profile_ipm_kernel",
-        os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
-                     "torch_port_profile_ipm_kernel.py"))
-    prof = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(prof)
+    prof = load_script("torch_port_profile_ipm_kernel")
     cfg = QPIPMConfig(iters=12)
     nFx, nFu = 4, 4
 
@@ -920,6 +941,237 @@ def run_k1_phases(dev, card, K, k1_ms):
             "bound_by": bound_by, "library_ms": None}
 
 
+# ---- slice 4: the per-tree IPM steps and the shared-row probe (K5) ---------------
+
+# The pins' batches. The QP pin runs the main path's IPM-8 with 2 Gondzio
+# correctors: at more iterations a few of 1024 lanes stall near gap 1e-8,
+# where u is determined to no better than ~1e-6 and the two solvers' iterates
+# part in u by 1e-7..1e-5 (as the reference's two solvers do). The CVaR
+# pin's root-u bar (2e-2) is the reference's, set at its 4 lanes; late
+# iterates of the overtake part by up to 1.4e-2 at 256 lanes (CPU, f64).
+QP_PIN_B = 1024
+CVAR_PIN_B = 64
+
+
+def run_shared_rows_phases(dev, card, K5):
+    """K5 against its plain version, then the probe script's timing at the
+    reference's default size and at the main path's width; returns K5's
+    ``kernels`` entry."""
+    from belief_planning_tpu_torch.ops.shared_rows import MODES, shared_rows, shared_rows_plain
+
+    probe = load_script("torch_port_mxu_probe")
+    inner, reps = 64, 8
+    sizes = ((4096, 25), (BENCH_B, 97))      # the reference's default; B x the QP's totalu
+    errs = {}
+    for B, nodes in sizes:
+        Fx, dx = probe.probe_inputs(B, nodes, dev)
+        p64, cur64 = shared_rows_plain(Fx.double(), dx.double(), inner, return_cur=True)
+        e_plain = (shared_rows_plain(Fx, dx, inner).double() - p64).abs().max().item()
+        mag = p64.abs().max().item()
+        # bf16 operands: each product's operands carry a relative error of
+        # at most 2^-9, so every output is within 2^-7 · Σ_k |Fx[r,k]|·|cur[k]|
+        bar16 = 2.0 ** -7 * torch.einsum("rk,nkb->nrb", Fx.double().abs(), cur64.abs())
+        outs, line = {}, {"phase": "shared_rows_vs_plain", "B": B, "nodes": nodes,
+                          "inner": inner, "plain_f32_err_vs_f64": e_plain}
+        for mode in MODES:
+            outs[mode] = shared_rows(Fx, dx, inner, mode)
+            torch.cuda.synchronize()
+            diff = (outs[mode].double() - p64).abs()
+            if mode == "bf16":
+                ratio = (diff / bar16).max().item()
+                line[mode] = {"max_abs_err": diff.max().item(), "worst_err_over_bar": ratio,
+                              "differs_from_fma": bool((outs[mode] != outs["fma"]).any())}
+                ok = ratio <= 1.0 and line[mode]["differs_from_fma"]
+            else:
+                bar = F32_ERR_RATIO * e_plain + F32_FLOOR * mag
+                line[mode] = {"max_abs_err": diff.max().item(), "bar": bar}
+                ok = diff.max().item() <= bar
+            errs[(B, mode)] = diff.max().item()
+            if not ok:
+                emit({**line, **card})
+                raise AssertionError(f"K5 {mode} disagrees with its plain version (B={B}, "
+                                     f"nodes={nodes}): {line[mode]}")
+        k64 = shared_rows(Fx.double(), dx.double(), inner, "fma")
+        line["fma_f64_scaled_err"] = ((k64 - p64).abs().max() / mag).item()
+        emit({**line, **card})
+        if not line["fma_f64_scaled_err"] <= F64_TOL:
+            raise AssertionError(f"K5 fma in f64 disagrees with its plain version: "
+                                 f"{line['fma_f64_scaled_err']:.3e}")
+        del Fx, dx, p64, cur64, outs, k64, bar16
+
+    # the probe's path: every launch of the three modes counted
+    for m in MODES:
+        K5.launches[m] = 0
+    runs = {B: probe.probe(B, nodes, inner, reps, 128, dev) for B, nodes in sizes}
+    launches = dict(K5.launches)
+    for B, r in runs.items():
+        emit({"phase": "shared_rows_time", "B": B, "nodes": r["nodes"], "inner": inner,
+              "reps": reps, "tile": r["tile"], "useful_flops": r["useful_flops"],
+              "modes": r["modes"], "summary": r["lines"], **card})
+    if launches != {m: len(sizes) * (1 + reps) for m in MODES}:
+        raise AssertionError(f"K5 probe: launches {launches}, expected {1 + reps} per mode "
+                             "and size")
+    Fx, dx = probe.probe_inputs(BENCH_B, 97, dev)
+    plain_ms = cuda_ms(lambda: shared_rows_plain(Fx, dx, inner), reps=2)
+    full = runs[BENCH_B]["modes"]
+    emit({"phase": "shared_rows_plain_time", "B": BENCH_B, "nodes": 97, "plain_ms": plain_ms,
+          **card})
+    return {"name": "shared_rows_probe", "route": "cuda",
+            "source": "belief_planning_tpu_torch/csrc/shared_rows_probe.cu",
+            "replaces": "scripts/mxu_probe.py:92",
+            "launches": sum(launches.values()), "max_abs_err": errs[(BENCH_B, "fma")],
+            "ms": full["fma"]["ms"], "plain_ms": plain_ms, "bound_ms": full["fma"]["bound_ms"],
+            "bound_by": full["fma"]["bound_by"], "library_ms": None,
+            "modes": {m: {"launches": launches[m], "ms": full[m]["ms"],
+                          "bound_ms": full[m]["bound_ms"], "bound_by": full[m]["bound_by"],
+                          "max_abs_err": errs[(BENCH_B, m)]} for m in MODES}}
+
+
+def run_per_tree_phases(dev, card, K, K2):
+    """The per-tree IPM steps: the QP's and the CVaR's main paths in f32 at
+    B=32768, and the pins of the fused kernels K1 and K2 (in f64) against them."""
+    from belief_planning_tpu_torch.controllers.branch_mpc import (
+        make_branch_mpc_batched_step,
+        make_branch_mpc_step,
+    )
+    from belief_planning_tpu_torch.controllers.cvar_mpc import make_cvar_mpc_step
+    from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig, cvar_ipm_solve
+    from belief_planning_tpu_torch.solvers.cvar_pl import cvar_ipm_solve_pl
+    from belief_planning_tpu_torch.solvers.layout import _from_bl, _to_bl
+    from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the solvers' einsums must run in full f32")
+    f32, f64 = torch.float32, torch.float64
+
+    def timed_step(run):
+        """``run()`` → ``(carry, result)``, timed on the host up to ``uPred``
+        on the host; returns ``(carry, result, seconds)``."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c_, r_ = run()
+        r_.uPred.cpu()
+        return c_, r_, time.perf_counter() - t0
+
+    # ---- the per-tree QP step at the bench config, f32, B=32768 ------------------
+    pset, model, params = overtake_setup()
+    ipm = QPIPMConfig()
+    topo, init, step = make_branch_mpc_step(model, params, "prox", ipm=ipm)
+    xs, zs, xRefs = (torch.as_tensor(a, dtype=f32, device=dev) for a in bench_states(BENCH_B))
+    c, _ = step(init(BENCH_B, f32), xs, zs, xRefs, pset.params)          # cold step
+    _, res, sec = timed_step(lambda: step(c, xs, zs, xRefs, pset.params))
+    finite = all(bool(t.isfinite().all()) for t in (res.xPred, res.uPred, res.prim_res, res.gap))
+    line = {"phase": "qp_ipm_main_path", "B": BENCH_B, "N": N, "NB": NB,
+            "ipm_iters": ipm.iters, "gondzio": ipm.gondzio, "dtype": "float32",
+            "step_ms": sec * 1e3, "solves_per_s": BENCH_B / sec, "finite": finite,
+            "feasible_share": res.feasible.float().mean().item(),
+            "prim_res_p50": float(res.prim_res.median()), "gap_p50": float(res.gap.median()),
+            "max_abs_a": res.uPred[..., 0].abs().max().item(),
+            "max_abs_r": res.uPred[..., 1].abs().max().item()}
+    prof = profile_step(lambda: step(c, xs, zs, xRefs, pset.params)[1].uPred.cpu())
+    emit({**line, "profile": prof, **card})
+    if not finite or tuple(res.uPred.shape) != (BENCH_B, topo.totalu, d):
+        raise AssertionError("per-tree QP main path: non-finite outputs or wrong shape")
+    del c, res
+    torch.cuda.empty_cache()
+
+    # ---- the QP pin: fused K1 in double against the per-tree step ------------------
+    pin_ipm = QPIPMConfig(iters=8, gondzio=2)
+    _, init, step = make_branch_mpc_step(model, params, "prox", ipm=pin_ipm)
+    _, init_f, step_f = make_branch_mpc_batched_step(model, params, "prox", ipm=pin_ipm)
+    xs, zs, xRefs = (torch.as_tensor(a, dtype=f64, device=dev) for a in bench_states(QP_PIN_B))
+    outs = []
+    K.launches = 0
+    for st_, in_ in ((step, init), (step_f, init_f)):
+        cc, seq = in_(QP_PIN_B, f64), []
+        for _ in range(2):
+            cc, r = st_(cc, xs, zs, xRefs, pset.params)
+            seq.append((r.uPred, r.xPred))
+        outs.append(seq)
+    du = [(a[0] - b[0]).abs().max().item() for a, b in zip(*outs)]
+    dx = [(a[1] - b[1]).abs().max().item() for a, b in zip(*outs)]
+    emit({"phase": "qp_ipm_pin", "B": QP_PIN_B, "dtype": "float64",
+          "ipm_iters": pin_ipm.iters, "gondzio": pin_ipm.gondzio, "steps": 2,
+          "max_abs_du": du, "max_abs_dx": dx, "k1_launches": K.launches,
+          "tol_du": 1e-7, "tol_dx": 1e-6, **card})
+    if K.launches != 2 * pin_ipm.iters:
+        raise AssertionError(f"QP pin: {K.launches} K1 launches, expected {2 * pin_ipm.iters}")
+    if not (max(du) < 1e-7 and max(dx) < 1e-6):
+        raise AssertionError(f"QP pin: fused K1 vs the per-tree step |du| {du}, |dx| {dx}")
+    del outs
+
+    # ---- the per-tree CVaR step, f32, per configuration ------------------------------
+    cfg = CVaRIPMConfig(iters=80)
+    for name in CVAR_CONFIGS:
+        model_c, params_c, pset_c, _, ralpha, use_S = cvar_config(name)
+        topo_c, _, init_c, step_c = make_cvar_mpc_step(model_c, params_c, ralpha, ipm=cfg,
+                                                       use_S=use_S)
+        xs, zs, xRefs, S, bx = cvar_states(name, BENCH_B, dev, f32)
+        kw = {} if S is None else dict(S=S, bx=bx)
+        # one cold step, timed: at 20-30 s of about half a million small device
+        # ops, a warm-up step would change nothing but the script's time
+        c, res, sec = timed_step(lambda: step_c(init_c(BENCH_B, f32), xs, zs, xRefs,
+                                                pset_c.params, **kw))
+        finite = all(bool(t.isfinite().all()) for t in (res.xPred, res.uPred, res.gap, res.J))
+        line = {"phase": "cvar_ipm_main_path", "config": name, "B": BENCH_B,
+                "N": params_c.N, "NB": params_c.NB, "m": model_c.m, "ipm_iters": cfg.iters,
+                "dtype": "float32",
+                "step_ms": sec * 1e3, "solves_per_s": BENCH_B / sec, "finite": finite,
+                "gap_p50": float(res.gap.median()), "gap_max": float(res.gap.max()),
+                "J_p50": float(res.J.median())}
+        if name == "cvar_overtake":
+            # where a step's time goes, profiled over 8 of its iterations
+            _, _, _, step_p = make_cvar_mpc_step(model_c, params_c, ralpha,
+                                                 ipm=CVaRIPMConfig(iters=8), use_S=use_S)
+            line["profile_8_iters"] = profile_step(
+                lambda: step_p(c, xs, zs, xRefs, pset_c.params, **kw)[1].uPred.cpu())
+        emit({**line, **card})
+        if not finite or tuple(res.uPred.shape) != (BENCH_B, topo_c.totalu, d):
+            raise AssertionError(f"per-tree CVaR main path ({name}): non-finite outputs or "
+                                 "wrong shape")
+        del c, res
+        torch.cuda.empty_cache()
+
+    # ---- the CVaR pin: fused K2 in double against cvar_ipm_solve ---------------------
+    from belief_planning_tpu_torch.models.policies import cast_params
+    from belief_planning_tpu_torch.solvers.cvar import build_cvar_plan
+    from belief_planning_tpu_torch.tree.engine import build_tree
+    from belief_planning_tpu_torch.tree.topology import build_topology
+
+    pin_cfg = CVaRIPMConfig(iters=60)
+    for name in CVAR_CONFIGS:
+        model_c, params_c, pset_c, _, ralpha, use_S = cvar_config(name)
+        tp = build_topology(params_c.N, params_c.NB, model_c.m, n, d)
+        cplan = build_cvar_plan(tp)
+        xs, zs, xRefs, S, bx = cvar_states(name, CVAR_PIN_B, dev, f64)
+        ts = build_tree(model_c, tp, xs, zs,
+                        torch.zeros(CVAR_PIN_B, tp.totalu, d, dtype=f64, device=dev),
+                        cast_params(pset_c.params, f64, dev))
+        floor = (torch.arange(CVAR_PIN_B, device=dev) % 2 == 0) if use_S else None
+        p = params_c
+        _, u, _, _, aux = cvar_ipm_solve(cplan, ts, p.Q, p.R, p.Qslack, xRefs, ralpha, p.Fx,
+                                         p.bx if bx is None else bx, p.Fu, p.bu, xs, S=S,
+                                         cfg=pin_cfg, dh0_floor=floor)
+        bl = lambda a: None if a is None else _to_bl(a)
+        K2.launches = 0
+        _, u_bl, _, _, aux_pl = cvar_ipm_solve_pl(
+            cplan, bl(ts.A), bl(ts.Bm), bl(ts.dh), bl(ts.h0), bl(ts.x_lin), bl(ts.u_lin),
+            bl(ts.p), p.Q, p.R, p.Qslack, bl(xRefs), ralpha, p.Fx,
+            p.bx if bx is None else bl(bx), p.Fu, p.bu, cfg=pin_cfg, S_bl=bl(S), dh0_floor=floor)
+        g, g_pl = aux["gaps"][:, :10], aux_pl["gaps"].T[:, :10]
+        ok10 = bool(torch.allclose(g, g_pl, rtol=1e-8, atol=1e-10))
+        rel = ((g - g_pl).abs() / g_pl.abs()).amax(0).tolist()
+        du0 = (u[:, 0] - _from_bl(u_bl)[:, 0]).abs().max().item()
+        emit({"phase": "cvar_ipm_pin", "config": name, "B": CVAR_PIN_B, "dtype": "float64",
+              "ipm_iters": pin_cfg.iters, "k2_launches": K2.launches,
+              "gaps_first10_max_rel": rel, "gaps_first10_ok": ok10, "root_du": du0,
+              "tol_root_du": 2e-2, **card})
+        if K2.launches != pin_cfg.iters:
+            raise AssertionError(f"CVaR pin ({name}): {K2.launches} K2 launches")
+        if not (ok10 and du0 < 2e-2):
+            raise AssertionError(f"CVaR pin ({name}): first 10 gaps ok={ok10}, root |du| {du0}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -933,7 +1185,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from belief_planning_tpu_torch.controllers.branch_mpc import make_branch_mpc_batched_step
-    from belief_planning_tpu_torch.ops import soc
+    from belief_planning_tpu_torch.ops import shared_rows, soc
     from belief_planning_tpu_torch.solvers import cvar_pl, tree_qp_pl
     from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
 
@@ -951,6 +1203,7 @@ def main() -> int:
     K = tree_qp_pl.KERNEL
     K2 = cvar_pl.KERNEL
     K3 = soc.KERNEL
+    K5 = shared_rows.KERNEL
     errors = []
 
     def build(kernel):
@@ -959,7 +1212,7 @@ def main() -> int:
         except Exception as e:          # re-raised below, on the main thread
             errors.append(e)
 
-    threads = [threading.Thread(target=build, args=(k,)) for k in (K, K2, K3)]
+    threads = [threading.Thread(target=build, args=(k,)) for k in (K, K2, K3, K5)]
     t_build = time.perf_counter()
     for th in threads:
         th.start()
@@ -979,6 +1232,10 @@ def main() -> int:
     ptxas3 = [ln.strip() for ln in K3.build_log.splitlines()
               if "registers" in ln or "spill" in ln or "stack frame" in ln]
     emit({"phase": "build_soc", "seconds": round(K3.build_seconds, 3), "ptxas": ptxas3,
+          "wall_seconds_all": round(build_wall, 3), **card})
+    ptxas5 = [ln.strip() for ln in K5.build_log.splitlines()
+              if "registers" in ln or "spill" in ln or "stack frame" in ln]
+    emit({"phase": "build_shared_rows", "seconds": round(K5.build_seconds, 3), "ptxas": ptxas5,
           "wall_seconds_all": round(build_wall, 3), **card})
 
     # ---- 2. kernel vs plain version on the card ----------------------------
@@ -1182,7 +1439,11 @@ def main() -> int:
     soc_line = run_admm_phases(dev, card, K3)
     phase_line = run_k1_phases(dev, card, K, k_ms)
 
-    # ---- 7. kernels line, card line, result ------------------------------------
+    # ---- 8. slice 4: the shared-row probe (K5) and the per-tree IPM steps --------
+    k5_line = run_shared_rows_phases(dev, card, K5)
+    run_per_tree_phases(dev, card, K, K2)
+
+    # ---- 9. kernels line, card line, result ------------------------------------
     emit({"kernels": [{
         "name": "tree_qp_ipm_iter",
         "route": "cuda",
@@ -1195,7 +1456,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }, cvar_lines, soc_line, phase_line]})
+    }, cvar_lines, soc_line, phase_line, k5_line]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, **card})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,5 +1,7 @@
-"""The CUDA kernels (K1 with its profile phases, K2, the SOC projection)
-against their plain PyTorch versions on the card, and the wrappers' checks.
+"""The CUDA kernels (K1 with its profile phases, K2, the SOC projection, the
+shared-row probe K5) against their plain PyTorch versions on the card, the
+wrappers' checks, and the independent IPM solvers on the card against the
+CPU.
 Needs a CUDA card (skips without one) and no JAX, so on a machine with the
 card and without JAX it runs on its own:
 
@@ -19,15 +21,16 @@ from belief_planning_tpu_torch.models.policies import (
     merge_policy_set,
 )
 from belief_planning_tpu_torch.models.predictive import highway_model, merge_model
+from belief_planning_tpu_torch.ops import shared_rows as sr
 from belief_planning_tpu_torch.ops import soc
 from belief_planning_tpu_torch.presets import init_branch_mpc
 from belief_planning_tpu_torch.solvers import cvar_pl
 from belief_planning_tpu_torch.solvers import tree_qp_pl as tpl
 from belief_planning_tpu_torch.solvers.cvar import _proj_soc_batch, build_cvar_plan
-from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig
+from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig, cvar_ipm_solve
 from belief_planning_tpu_torch.solvers.layout import _to_bl, cost_to_bl
 from belief_planning_tpu_torch.solvers.tree_qp import assemble_stage_cost, build_stage_plan
-from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
+from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig, qp_ipm_solve
 from belief_planning_tpu_torch.tree.engine import build_tree
 from belief_planning_tpu_torch.tree.topology import build_topology
 from belief_planning_tpu_torch.utils.config import BranchConstants
@@ -40,9 +43,9 @@ GONDZIO = 2
 NAMES = tpl.CARRY_ORDER + ["gap"]
 
 
-def qp_data(dtype=torch.float64, device="cpu"):
-    """Real QP data from the port's tree build and cost assembly (f64),
-    cast to ``dtype``: ``(params, plan, cost_bl, batch-last tree arrays)``."""
+def qp_batch(device="cpu"):
+    """Real QP data from the port's tree build and cost assembly, f64,
+    batch-leading: ``(params, plan, cost, ts, xs)``."""
     cons = BranchConstants()
     xRef = np.array([0.5, 1.8, 15.0, 0.0])
     model = highway_model(cons, highway_policy_set(cons, xRef), N=N, dt=0.1)
@@ -59,9 +62,16 @@ def qp_data(dtype=torch.float64, device="cpu"):
     cost = assemble_stage_cost(topo, ts, params.Q, params.R, params.Qf, params.dR, params.Qslack,
                                t(np.tile([0.0, 1.8, 18.0, 0.0], (B, 1))),
                                torch.zeros(B, 2, dtype=f64, device=device))
+    return params, build_stage_plan(topo), cost, ts, t(xs)
+
+
+def qp_data(dtype=torch.float64, device="cpu"):
+    """:func:`qp_batch`'s data cast to ``dtype``, batch-last: ``(params,
+    plan, cost_bl, batch-last tree arrays)``."""
+    params, plan, cost, ts, _ = qp_batch(device)
     cost = type(cost)(*(c.to(dtype) for c in cost))
     bl = lambda a: _to_bl(a.to(dtype))
-    return params, build_stage_plan(topo), cost_to_bl(cost), \
+    return params, plan, cost_to_bl(cost), \
         dict(A=bl(ts.A), Bm=bl(ts.Bm), C=bl(ts.C), dh=bl(ts.dh), h0=bl(ts.h0),
              x=bl(ts.x_lin), u=bl(ts.u_lin))
 
@@ -308,3 +318,82 @@ def test_phase_2_is_the_main_kernel(cuda_device):
     want = tpl.fused_iteration(plan, cfg, 4, 4, mtot)(*su.const_args, *su.carry0)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _probe_inputs(device, B=4096, nodes=25, seed=0):
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.normal(size=(4, 4)), dtype=torch.float32, device=device),
+            torch.as_tensor(rng.normal(size=(nodes, 4, B)), dtype=torch.float32, device=device))
+
+
+@pytest.mark.parametrize("mode", sr.MODES)
+def test_shared_rows_kernel_matches_plain(cuda_device, mode):
+    """K5 against the plain version in f64 (64 chained products, B=4096 × 25
+    nodes): fma and 3xtf32 as accurate as the plain f32 version (≤ 2 × its
+    error + 1e-6 × the magnitude); bf16 within 2⁻⁷·Σ|Fx|·|cur| of every output
+    and different from the f32 result. One launch."""
+    Fx, dx = _probe_inputs(cuda_device)
+    p64, cur = sr.shared_rows_plain(Fx.double(), dx.double(), 64, return_cur=True)
+    before = dict(sr.KERNEL.launches)
+    got = sr.shared_rows(Fx, dx, 64, mode)
+    torch.cuda.synchronize()
+    assert sr.KERNEL.launches[mode] == before[mode] + 1
+    err = (got.double() - p64).abs()
+    if mode == "bf16":
+        bar = 2.0 ** -7 * torch.einsum("rk,nkb->nrb", Fx.double().abs(), cur.abs())
+        assert bool((err <= bar).all())
+        assert bool((got != sr.shared_rows_plain(Fx, dx, 64)).any())
+    else:
+        e_plain = (sr.shared_rows_plain(Fx, dx, 64).double() - p64).abs().max().item()
+        assert err.max().item() <= 2 * e_plain + 1e-6 * p64.abs().max().item()
+
+
+def test_shared_rows_fma_f64_matches_plain(cuda_device):
+    Fx, dx = (t.double() for t in _probe_inputs(cuda_device, B=1000, nodes=7))
+    ref = sr.shared_rows_plain(Fx, dx, 64)
+    got = sr.shared_rows(Fx, dx, 64, "fma", tile=64)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-14
+
+
+def test_shared_rows_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    Fx, dx = _probe_inputs(cuda_device, B=64, nodes=3)
+    before = dict(sr.KERNEL.launches)
+    bad = [(Fx, dx.double(), 8, "bf16", 128), (Fx, dx[:, :3], 8, "fma", 128),
+           (Fx, dx.transpose(0, 2).contiguous().transpose(0, 2), 8, "fma", 128),
+           (Fx.cpu(), dx, 8, "fma", 128), (Fx, dx, 0, "fma", 128), (Fx, dx, 8, "fma", 48),
+           (Fx, dx, 8, "fma", 1024), (Fx.t(), dx, 8, "3xtf32", 128)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            sr.shared_rows(*args)
+    assert sr.KERNEL.launches == before
+
+
+def test_qp_ipm_solve_on_the_card_matches_the_cpu(cuda_device):
+    """``qp_ipm_solve`` (f64, 2 Gondzio correctors) on the card against the
+    same call on the CPU: the first 6 gaps within rtol 1e-10."""
+    p, plan, cost, ts, xs = qp_batch("cpu")
+    cfg = QPIPMConfig(iters=6, gondzio=2)
+    args = (p.Fx, p.bx, p.Fu, p.bu, xs, torch.zeros(B, 2, dtype=torch.float64))
+    on_cpu = qp_ipm_solve(plan, cost, ts, *args, cfg, device="cpu")
+    on_card = qp_ipm_solve(plan, cost, ts, *args, cfg)
+    assert on_card[1].is_cuda
+    np.testing.assert_allclose(on_card[3]["gaps"].cpu().numpy(), on_cpu[3]["gaps"].numpy(),
+                               rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("kind", ["merge", "overtake"])
+def test_cvar_ipm_solve_on_the_card_matches_the_cpu(cuda_device, kind):
+    """``cvar_ipm_solve`` (f64, 2 Gondzio correctors) on the card against the
+    same call on the CPU: the first 6 gaps within rtol 1e-10."""
+    params, _, pset, model, ralpha, xs, zs, xRefs, S, bx, floor = cvar_problem(kind, 3, 1, 4)
+    topo = build_topology(3, 1, model.m, 4, 2)
+    ts = build_tree(model, topo, xs, zs, torch.zeros(4, topo.totalu, 2, dtype=torch.float64),
+                    cast_params(pset.params, torch.float64, "cpu"))
+    cfg = CVaRIPMConfig(iters=6, gondzio=2)
+    args = (build_cvar_plan(topo), ts, params.Q, params.R, params.Qslack, xRefs, ralpha,
+            params.Fx, params.bx if bx is None else bx, params.Fu, params.bu, xs)
+    on_cpu = cvar_ipm_solve(*args, S=S, cfg=cfg, dh0_floor=floor, device="cpu")
+    on_card = cvar_ipm_solve(*args, S=S, cfg=cfg, dh0_floor=floor)
+    assert on_card[1].is_cuda
+    np.testing.assert_allclose(on_card[4]["gaps"].cpu().numpy(), on_cpu[4]["gaps"].numpy(),
+                               rtol=1e-10, atol=1e-12)

@@ -21,7 +21,8 @@ torch.set_num_threads(1)
 
 def _sources():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "scripts" / "torch_port_profile_ipm_kernel.py"]
+                                        ROOT / "scripts" / "torch_port_profile_ipm_kernel.py",
+                                        ROOT / "scripts" / "torch_port_mxu_probe.py"]
 
 
 def _imported_roots(path):
@@ -130,3 +131,54 @@ def test_cvar_solve_defaults_to_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             cvar_solve(*args, cfg=cfg)
     assert cvar_solve(*args, cfg=cfg, device="cpu")[1].device.type == "cpu"
+
+
+def test_per_tree_steps_default_to_cuda():
+    from belief_planning_tpu_torch.controllers.branch_mpc import make_branch_mpc_step
+    from belief_planning_tpu_torch.controllers.cvar_mpc import make_cvar_mpc_step
+
+    model, params = _factory_args()
+    for make, extra in ((make_branch_mpc_step, ()), (make_cvar_mpc_step, (0.9,))):
+        if torch.cuda.is_available():
+            assert make(model, params, *extra)[-2](2).u_lin.is_cuda
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                make(model, params, *extra)
+        assert make(model, params, *extra, device="cpu")[-2](2).u_lin.device.type == "cpu"
+
+
+def test_ipm_solvers_default_to_cuda():
+    from belief_planning_tpu_torch.models.policies import cast_params, highway_policy_set
+    from belief_planning_tpu_torch.solvers.cvar import build_cvar_plan
+    from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig, cvar_ipm_solve
+    from belief_planning_tpu_torch.solvers.tree_qp import assemble_stage_cost, build_stage_plan
+    from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig, qp_ipm_solve
+    from belief_planning_tpu_torch.tree.engine import build_tree
+    from belief_planning_tpu_torch.tree.topology import build_topology
+    from belief_planning_tpu_torch.utils.config import BranchConstants
+
+    model, params = _factory_args()
+    topo = build_topology(3, 1, model.m, 4, 2)
+    f64 = torch.float64
+    x = torch.tensor([[0.0, 1.8, 20.0, 0.0]], dtype=f64)
+    z = torch.tensor([[9.0, 1.8, 17.0, 0.0]], dtype=f64)
+    pset = highway_policy_set(BranchConstants(), np.array([0.5, 1.8, 15.0, 0.0]))
+    ts = build_tree(model, topo, x, z, torch.zeros(1, topo.totalu, 2, dtype=f64),
+                    cast_params(pset.params, f64, "cpu"))
+    cost = assemble_stage_cost(topo, ts, params.Q, params.R, params.Qf, params.dR, params.Qslack,
+                               x, torch.zeros(1, 2, dtype=f64))
+    p = params
+    calls = [
+        lambda **kw: qp_ipm_solve(build_stage_plan(topo), cost, ts, p.Fx, p.bx, p.Fu, p.bu, x,
+                                  torch.zeros(1, 2, dtype=f64), QPIPMConfig(iters=1), **kw)[1],
+        lambda **kw: cvar_ipm_solve(build_cvar_plan(topo), ts, p.Q, p.R, p.Qslack, p.xRef, 0.9,
+                                    p.Fx, p.bx, p.Fu, p.bu, x, cfg=CVaRIPMConfig(iters=1),
+                                    **kw)[1],
+    ]
+    for call in calls:
+        if torch.cuda.is_available():
+            assert call().is_cuda
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call()
+        assert call(device="cpu").device.type == "cpu"
