@@ -5,7 +5,7 @@ One Mehrotra iteration with Gondzio correctors of the nested-CVaR tree SOCP
 is one call of :func:`fused_cvar_iteration`'s step function:
 
 - on CUDA tensors it launches the hand-written kernel
-  ``csrc/cvar_ipm_iter.cu`` (one thread per tree), or raises;
+  ``csrc/cvar_ipm_iter.cu`` (a warp per tree), or raises;
 - on CPU tensors it runs :func:`make_cvar_iteration`, the plain PyTorch
   version of the same iteration, which the tests hold against the JAX
   package.
@@ -519,13 +519,51 @@ def make_cvar_iteration(cplan: CVaRPlan, cfg: CVaRIPMConfig, dims: dict):
 KERNEL_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "cvar_ipm_iter.cu"
 
 
+PLAN_KEYS = ("scratch_elems", "blocks", "trees_per_block", "blocks_per_sm", "sms",
+             "smem_bytes")
+
+
+def bind_kernel_library(lib):
+    """Declare the C interface of a built ``cvar_ipm_iter`` library."""
+    for name in ("bp_cvar_iter_f32", "bp_cvar_iter_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_double), ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.bp_cvar_iter_plan.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_longlong,
+                                      ctypes.c_int, ctypes.c_int,
+                                      ctypes.POINTER(ctypes.c_longlong)]
+    lib.bp_cvar_iter_plan.restype = ctypes.c_int
+    return lib
+
+
+def kernel_plan(lib, ints, B: int, dtype, device_index: int) -> dict:
+    """The kernel's launch shape for ``B`` trees (``PLAN_KEYS``): the scratch
+    elements it needs (one tree-major slot per resident team), the persistent
+    grid, the trees (warps) a block, the resident blocks an SM, the SMs and
+    the dynamic shared memory a block. Raises on dims the kernel does not
+    take or a failed CUDA query."""
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    err = lib.bp_cvar_iter_plan((ctypes.c_int * len(ints))(*ints), ctypes.c_longlong(B),
+                                ctypes.c_int(int(dtype == torch.float64)),
+                                ctypes.c_int(device_index), out)
+    if err == 1:
+        raise ValueError("cvar_ipm_iter: unsupported dims or level table")
+    if err != 0:
+        raise RuntimeError(f"cvar_ipm_iter: launch plan failed: CUDA error {err}")
+    return dict(zip(PLAN_KEYS, out))
+
+
 class FusedCVaRIterationKernel:
     """Wrapper of ``csrc/cvar_ipm_iter.cu`` (replaces the reference's
-    ``cvar_pl._make_pallas_cvar_iteration``). ``launches`` counts the kernel
-    launches, and nothing else; ``build_log`` / ``build_seconds`` are what
-    nvcc printed and took when this process built the library."""
+    ``cvar_pl._make_pallas_cvar_iteration``), or of another source with its C
+    interface. ``launches`` counts the kernel launches, and nothing else;
+    ``build_log`` / ``build_seconds`` are what nvcc printed and took when
+    this process built the library."""
 
-    def __init__(self):
+    def __init__(self, source: Path = KERNEL_SOURCE):
+        self.source = Path(source)
         self.launches = 0
         self.build_log = ""
         self.build_seconds = 0.0
@@ -534,25 +572,13 @@ class FusedCVaRIterationKernel:
     def load(self):
         """Build (nvcc, at first use) and load the kernel library."""
         if self._lib is None:
-            path, self.build_log, self.build_seconds = build_shared_library(KERNEL_SOURCE)
-            lib = ctypes.CDLL(str(path))
-            for name in ("bp_cvar_iter_f32", "bp_cvar_iter_f64"):
-                fn = getattr(lib, name)
-                fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                               ctypes.POINTER(ctypes.c_double), ctypes.c_longlong,
-                               ctypes.c_int, ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            lib.bp_cvar_iter_scratch.argtypes = [ctypes.POINTER(ctypes.c_int)]
-            lib.bp_cvar_iter_scratch.restype = ctypes.c_longlong
-            self._lib = lib
+            path, self.build_log, self.build_seconds = build_shared_library(self.source)
+            self._lib = bind_kernel_library(ctypes.CDLL(str(path)))
         return self._lib
 
-    def scratch_elems(self, ints) -> int:
-        """Scratch elements per lane the kernel needs for these dims."""
-        elems = self.load().bp_cvar_iter_scratch((ctypes.c_int * len(ints))(*ints))
-        if elems <= 0:
-            raise ValueError("cvar_ipm_iter: unsupported dims or level table")
-        return elems
+    def plan(self, ints, B: int, dtype, device_index: int) -> dict:
+        """The launch shape of ``B`` trees (see :func:`kernel_plan`)."""
+        return kernel_plan(self.load(), ints, B, dtype, device_index)
 
     def launch(self, ints, dbl, consts, carry, scratch):
         """Launch one iteration on the current stream; returns the new carry
@@ -648,11 +674,12 @@ def fused_cvar_iteration(cplan: CVaRPlan, cfg: CVaRIPMConfig, dims: dict):
         Z = x_c.shape[-1]
         tensors = args[:n_in] + args[n_in + 1:]
         check(tensors, x_c.dtype, x_c.device, Z)
-        if not scratch or scratch[0].shape[1] != Z or scratch[0].dtype != x_c.dtype:
-            scratch[:] = [torch.empty((KERNEL.scratch_elems(ints), Z), dtype=x_c.dtype,
-                                      device=x_c.device)]
+        key = (Z, x_c.dtype, x_c.device)
+        if not scratch or scratch[0] != key:
+            elems = KERNEL.plan(ints, Z, x_c.dtype, x_c.device.index)["scratch_elems"]
+            scratch[:] = [key, torch.empty(elems, dtype=x_c.dtype, device=x_c.device)]
         return KERNEL.launch(ints, kernel_scalars(cfg, dims, x_c.dtype, itv),
-                             tensors[:n_in], tensors[n_in:], scratch[0])
+                             tensors[:n_in], tensors[n_in:], scratch[1])
 
     return step
 

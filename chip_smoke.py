@@ -32,10 +32,14 @@ Phases, one JSON line each:
    and the CVaR overtake (N=8, NB=2, m=3, ``bench_cvar.py``'s states):
    ``build_cvar`` (nvcc, ptxas report); ``cvar_kernel_vs_plain`` (one
    iteration in f64 at B=1024, at the first and the fifth iteration, bar
-   1e-10 of each field's magnitude; one in f32 at B=32768 with the accuracy
-   bar); ``cvar_main_path`` per configuration (solves/s at B=32768 over 5
-   warm-started steps, 24 launches a step, gap p50 / max, one profiled
-   step; for the merge also p50 step ms at B=256 against 100 ms);
+   1e-10 of each field's magnitude; one in f32 at B=32768 and one at B=256,
+   2 trees a block, with the accuracy bar); ``cvar_kernel_time`` (ms a
+   launch at B=32768 and at B=256 beside the plain version's and the bound,
+   and the launch plan: trees a block, resident teams an SM, shared memory
+   a block, scratch bytes in total and a team); ``cvar_main_path`` per
+   configuration (solves/s at B=32768 over 5 warm-started steps, 24
+   launches a step, gap p50 / max, one profiled step; for the merge also
+   p50 step ms at B=256 against 100 ms);
    ``cvar_main_path_vs_cpu`` (the merge in f64 at B=64 on the card and on
    the CPU: two steps' |Δu| |Δx|, and the first 10 gaps of one solve to
    rtol 1e-8, atol 1e-10); ``cvar_refine_f64`` (the merge at B=256 with an
@@ -456,6 +460,15 @@ def run_cvar_phases(dev, card, K2):
                                      f"{bad} ({name}, B={B})")
         return cplan, su, plain, carry, max(e[1] for e in errs.values())
 
+    def bound(su, cplan, B):
+        """``(bound ms, what bounds it, bytes, flops)`` of one f32 iteration."""
+        nbytes = cvar_iteration_bytes(su)
+        flops = cvar_iteration_flops(cplan, su.dims, cfg.gondzio, B)
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_FLOPS["float32"] * 1e3
+        return (t_bytes, "bytes", nbytes, flops) if t_bytes >= t_ops else \
+            (t_ops, "operations", nbytes, flops)
+
     timing = {}
     for name in CVAR_CONFIGS:
         one_iteration(name, 1024, f64)
@@ -463,19 +476,37 @@ def run_cvar_phases(dev, card, K2):
         cplan, su, plain, carry, err32 = one_iteration(name, BENCH_B, f32)
         k_ms = cuda_ms(lambda: su.step_fn(*su.in_args, 0, *carry), reps=3)
         plain_ms = cuda_ms(lambda: plain(*su.in_args, 0, *carry), reps=1)
-        nbytes = cvar_iteration_bytes(su)
-        flops = cvar_iteration_flops(cplan, su.dims, cfg.gondzio, BENCH_B)
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = flops / H100_FLOPS["float32"] * 1e3
-        bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-        elems = K2.scratch_elems(cvar_pl.kernel_ints(cplan, cfg, su.dims))
+        bound_ms, bound_by, nbytes, flops = bound(su, cplan, BENCH_B)
+        ints = cvar_pl.kernel_ints(cplan, cfg, su.dims)
+        plan = K2.plan(ints, BENCH_B, f32, dev.index)
         timing[name] = dict(ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                             max_abs_err=err32)
+        del su, carry, plain
+        # the latency shape: B=256 (merge: the p50 cell of the main path), 2
+        # trees a block, held to the plain version at the f32 bar as well
+        cplan, su256, plain_fn, _, _ = one_iteration(name, 256, f32)
+        ms256 = cuda_ms(lambda: su256.step_fn(*su256.in_args, 0, *su256.carry0), reps=20)
+        plain256 = cuda_ms(lambda: plain_fn(*su256.in_args, 0, *su256.carry0), reps=3)
+        b256 = bound(su256, cplan, 256)
+        plan256 = K2.plan(ints, 256, f32, dev.index)
+        elem = 4
         emit({"phase": "cvar_kernel_time", "config": name, "B": BENCH_B, "dtype": "float32",
               "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-              "bytes": nbytes, "flops": flops, "bytes_ms": t_bytes, "flops_ms": t_ops,
-              "scratch_bytes_per_lane": elems * 4, **card})
-        del su, carry, plain
+              "bytes": nbytes, "flops": flops, "bytes_ms": nbytes / H100_BYTES_PER_S * 1e3,
+              "flops_ms": flops / H100_FLOPS["float32"] * 1e3,
+              "ms_B256": ms256, "plain_ms_B256": plain256, "bound_ms_B256": b256[0],
+              "bound_by_B256": b256[1],
+              # the launch plan: a warp (team) per tree, a persistent grid
+              "trees_per_block": plan["trees_per_block"],
+              "blocks_per_sm": plan["blocks_per_sm"],
+              "resident_teams_per_sm": plan["trees_per_block"] * plan["blocks_per_sm"],
+              "blocks": plan["blocks"], "smem_bytes_per_block": plan["smem_bytes"],
+              "scratch_bytes": plan["scratch_elems"] * elem,
+              "scratch_bytes_per_team": plan["scratch_elems"] * elem
+              // (plan["blocks"] * plan["trees_per_block"]),
+              "blocks_B256": plan256["blocks"], "trees_per_block_B256": plan256["trees_per_block"],
+              **card})
+        del su256, plain_fn
         torch.cuda.empty_cache()
 
     # ---- the main path, per configuration ------------------------------------

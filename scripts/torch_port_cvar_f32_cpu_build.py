@@ -1,20 +1,19 @@
 """The CVaR kernel's f32 accuracy bar, rehearsed on the CPU.
 
-Builds ``csrc/cvar_ipm_iter.cu`` with g++ (CUDA keywords stubbed, as
+Builds ``csrc/cvar_ipm_iter.cu`` with g++ (CUDA emulated with threads, as
 ``tests/test_torch_cvar_kernel_cpu_build.py`` does; FMA contraction allowed,
 as nvcc does), runs one f32 iteration at both chip configurations at B lanes
-from a cold start, and prints per configuration and field the kernel's and
+from a cold start on an emulated card of SMS SMs (default 1; 132, an H100's,
+gives B=256 the card's 2 trees a block), and prints per configuration and field the kernel's and
 the plain f32 version's max error against the plain version in f64 on the
 same upcast inputs, and the bar ``2 × plain + 1e-6 × magnitude`` that
 ``chip_smoke.py`` holds the kernel to on the card.
 
-    python scripts/torch_port_cvar_f32_cpu_build.py [B] [kernel source]
+    python scripts/torch_port_cvar_f32_cpu_build.py [B] [kernel source] [SMS]
 """
 
-import ctypes
 import json
 import os
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -26,37 +25,19 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from belief_planning_tpu_torch.solvers import cvar_pl  # noqa: E402
 from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig  # noqa: E402
-from tests.test_torch_cvar_kernel_cpu_build import LAUNCH, LOOP, _run  # noqa: E402
-from tests.test_torch_kernel_cpu_build import STUB  # noqa: E402
+from tests.test_torch_cvar_kernel_cpu_build import build_cpu_kernel, run_cpu_kernel  # noqa: E402
 
 
-def build(source: Path, out_dir: Path):
-    (out_dir / "cuda_runtime.h").write_text(STUB)
-    (out_dir / "k.cpp").write_text(LAUNCH.sub(LOOP, source.read_text()))
-    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=fast",
-                    "-march=native", "-I", str(out_dir), "-o", str(out_dir / "k.so"),
-                    str(out_dir / "k.cpp")], check=True)
-    lib = ctypes.CDLL(str(out_dir / "k.so"))
-    for name in ("bp_cvar_iter_f32", "bp_cvar_iter_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                       ctypes.POINTER(ctypes.c_double), ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.bp_cvar_iter_scratch.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.bp_cvar_iter_scratch.restype = ctypes.c_longlong
-    return lib
-
-
-def main(B=4096, source=cvar_pl.KERNEL_SOURCE):
+def main(B=4096, source=cvar_pl.KERNEL_SOURCE, sms=1):
     torch.set_num_threads(os.cpu_count() or 1)
     with tempfile.TemporaryDirectory() as d:
-        lib = build(Path(source), Path(d))
+        lib = build_cpu_kernel(Path(d), Path(source).read_text(),
+                               ("-O2", "-ffp-contract=fast", "-march=native"))
         cfg = CVaRIPMConfig(iters=24, gondzio=2)
         names = cvar_pl.CARRY_ORDER + ["gap"]
         for name in cs.CVAR_CONFIGS:
             cplan, su, plain = cs.cvar_case(name, torch.device("cpu"), B, torch.float32, cfg)
-            got = _run(lib, cplan, cfg, su, 0, su.carry0)
+            got = run_cpu_kernel(lib, cplan, cfg, su, 0, su.carry0, device=sms - 1)
             ref = plain(*su.in_args, 0, *su.carry0)
             ref64 = plain(*[t.double() for t in su.in_args], 0,
                           *[t.double() for t in su.carry0])
@@ -72,4 +53,5 @@ def main(B=4096, source=cvar_pl.KERNEL_SOURCE):
 
 if __name__ == "__main__":
     main(int(sys.argv[1]) if len(sys.argv) > 1 else 4096,
-         sys.argv[2] if len(sys.argv) > 2 else cvar_pl.KERNEL_SOURCE)
+         sys.argv[2] if len(sys.argv) > 2 else cvar_pl.KERNEL_SOURCE,
+         int(sys.argv[3]) if len(sys.argv) > 3 else 1)

@@ -228,6 +228,27 @@ def test_cvar_kernel_matches_plain_f64(cuda_device, kind, NB, itv):
         assert err <= ITER_TOL, (name, err)
 
 
+@pytest.mark.parametrize("kind,NB", [("merge", 1), ("overtake", 2)])
+@pytest.mark.parametrize("B", [1, 2001])
+def test_cvar_kernel_matches_plain_at_ragged_batches(cuda_device, kind, NB, B):
+    """CVaR kernel, f64, at B=1 and at B=2001: more trees than the
+    persistent grid holds, so its blocks walk over the batch in rounds and
+    the last round's block is part-full; every field within 1e-10 of its
+    magnitude, one launch."""
+    cplan, cfg, su, plain = cvar_setup(kind, torch.float64, cuda_device, NB=NB, B=B)
+    plan = cvar_pl.KERNEL.plan(cvar_pl.kernel_ints(cplan, cfg, su.dims), B, torch.float64,
+                               su.carry0[0].device.index)
+    assert B == 1 or (B % plan["trees_per_block"] != 0
+                      and plan["blocks"] * plan["trees_per_block"] < B)
+    before = cvar_pl.KERNEL.launches
+    got = su.step_fn(*su.in_args, 1, *su.carry0)
+    assert cvar_pl.KERNEL.launches == before + 1
+    ref = plain(*su.in_args, 1, *su.carry0)
+    for name, a, b in zip(CVAR_NAMES, got, ref):
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        assert err <= ITER_TOL, (name, B, err)
+
+
 @pytest.mark.parametrize("kind", ["merge", "overtake"])
 def test_cvar_kernel_matches_plain_f32(cuda_device, kind):
     """CVaR kernel, f32: as accurate as the plain version in f32 (against the

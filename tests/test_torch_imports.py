@@ -22,7 +22,9 @@ torch.set_num_threads(1)
 def _sources():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "scripts" / "torch_port_profile_ipm_kernel.py",
-                                        ROOT / "scripts" / "torch_port_mxu_probe.py"]
+                                        ROOT / "scripts" / "torch_port_mxu_probe.py",
+                                        ROOT / "scripts" / "torch_port_cvar_kernel_ab.py",
+                                        ROOT / "scripts" / "torch_port_cvar_kernel_phases.py"]
 
 
 def _imported_roots(path):
