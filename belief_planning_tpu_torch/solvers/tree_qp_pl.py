@@ -12,7 +12,8 @@ fraction-to-boundary step with two 0.3× backtracks) is one call of
 :func:`fused_iteration`'s step function:
 
 - on CUDA tensors it launches the hand-written kernel
-  ``csrc/tree_qp_ipm_iter.cu`` (one thread per tree), or raises;
+  ``csrc/tree_qp_ipm_iter.cu`` (a warp per tree, the factor in shared
+  memory, a persistent grid), or raises;
 - on CPU tensors it runs :func:`make_iteration`, the plain PyTorch version
   of the same iteration, which the tests hold against the JAX package.
 
@@ -503,18 +504,62 @@ CARRY_ORDER = ["x", "u", "s", "sl1", "lam1", "sl2", "lam2", "sl3", "lam3"]
 CARRY_FIELDS = len(CARRY_ORDER)
 
 KERNEL_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "tree_qp_ipm_iter.cu"
+# the kernel's instantiated sizes: n, d, state rows (nFx), input rows (nFu)
+KERNEL_DIMS = (4, 2, 4, 4)
+PLAN_KEYS = ("scratch_elems", "blocks", "trees_per_block", "blocks_per_sm", "sms",
+             "smem_bytes")
+
+
+def bind_kernel_library(lib):
+    """Declare the C interface of a built ``tree_qp_ipm_iter`` library."""
+    for name in ("bp_tree_qp_iter_f32", "bp_tree_qp_iter_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_double), ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for name in ("bp_tree_qp_phase_f32", "bp_tree_qp_phase_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_double),
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.bp_tree_qp_iter_plan.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_longlong,
+                                         ctypes.c_int, ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_longlong)]
+    lib.bp_tree_qp_iter_plan.restype = ctypes.c_int
+    return lib
+
+
+def kernel_plan(lib, ints, B: int, dtype, device_index: int) -> dict:
+    """The kernel's launch shape for ``B`` trees (``PLAN_KEYS``): the scratch
+    elements it needs (one tree-major slot per resident team), the persistent
+    grid, the trees (warps) a block, the resident blocks an SM, the SMs and
+    the dynamic shared memory a block. Raises on dims the kernel does not
+    take or a failed CUDA query."""
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    err = lib.bp_tree_qp_iter_plan((ctypes.c_int * len(ints))(*ints), ctypes.c_longlong(B),
+                                   ctypes.c_int(int(dtype == torch.float64)),
+                                   ctypes.c_int(device_index), out)
+    if err == 1:
+        raise ValueError("tree_qp_ipm_iter: unsupported dims or level table")
+    if err != 0:
+        raise RuntimeError(f"tree_qp_ipm_iter: launch plan failed: CUDA error {err}")
+    return dict(zip(PLAN_KEYS, out))
 
 
 class FusedIterationKernel:
     """Wrapper of ``csrc/tree_qp_ipm_iter.cu`` (replaces the reference's
     ``tree_qp_pl._make_pallas_iteration``, and with :meth:`launch_phase` the
-    phase kernels of its profile, ``scripts/profile_ipm_kernel.py``).
-    ``launches`` counts the main kernel's launches (the full iteration,
-    the profile's phase 2 included) and ``phase_launches`` those of phase
-    kernels 0 and 1, and nothing else; ``build_log`` / ``build_seconds`` are what nvcc printed and took
-    when this process built the library."""
+    phase kernels of its profile, ``scripts/profile_ipm_kernel.py``), or of
+    another source with its C interface. ``launches`` counts the main
+    kernel's launches (the full iteration, the profile's phase 2 included)
+    and ``phase_launches`` those of phase kernels 0 and 1, and nothing else;
+    ``build_log`` / ``build_seconds`` are what nvcc printed and took when
+    this process built the library."""
 
-    def __init__(self):
+    def __init__(self, source: Path = KERNEL_SOURCE):
+        self.source = Path(source)
         self.launches = 0
         self.phase_launches = 0
         self.build_log = ""
@@ -524,33 +569,13 @@ class FusedIterationKernel:
     def load(self):
         """Build (nvcc, at first use) and load the kernel library."""
         if self._lib is None:
-            path, self.build_log, self.build_seconds = build_shared_library(KERNEL_SOURCE)
-            lib = ctypes.CDLL(str(path))
-            for name in ("bp_tree_qp_iter_f32", "bp_tree_qp_iter_f64"):
-                fn = getattr(lib, name)
-                fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                               ctypes.POINTER(ctypes.c_int),
-                               ctypes.POINTER(ctypes.c_double),
-                               ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            for name in ("bp_tree_qp_phase_f32", "bp_tree_qp_phase_f64"):
-                fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-                               ctypes.POINTER(ctypes.c_int),
-                               ctypes.POINTER(ctypes.c_double),
-                               ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            lib.bp_tree_qp_iter_scratch.argtypes = [ctypes.POINTER(ctypes.c_int)]
-            lib.bp_tree_qp_iter_scratch.restype = ctypes.c_longlong
-            self._lib = lib
+            path, self.build_log, self.build_seconds = build_shared_library(self.source)
+            self._lib = bind_kernel_library(ctypes.CDLL(str(path)))
         return self._lib
 
-    def scratch_elems(self, ints) -> int:
-        """Scratch elements per lane the kernel needs for this level table."""
-        elems = self.load().bp_tree_qp_iter_scratch((ctypes.c_int * len(ints))(*ints))
-        if elems <= 0:
-            raise ValueError("tree_qp_ipm_iter: unsupported level table")
-        return elems
+    def plan(self, ints, B: int, dtype, device_index: int) -> dict:
+        """The launch shape of ``B`` trees (see :func:`kernel_plan`)."""
+        return kernel_plan(self.load(), ints, B, dtype, device_index)
 
     def launch(self, ints, dbl, consts, carry, scratch):
         """Launch one iteration on the current stream; returns the new carry
@@ -677,19 +702,22 @@ def _kernel_step(plan, cfg, nFx, nFu, mtot, phase):
             return iterate(*args)
         if x_c.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"tree_qp_ipm_iter: dtype {x_c.dtype} not supported")
-        if (n, d) != (4, 2):
-            raise ValueError(f"tree_qp_ipm_iter: kernel is built for n=4, d=2, got {(n, d)}")
+        if (n, d, nFx, nFu) != KERNEL_DIMS:
+            raise ValueError(f"tree_qp_ipm_iter: kernel is built for (n, d, nFx, nFu) = "
+                             f"{KERNEL_DIMS}, got {(n, d, nFx, nFu)}")
         Z = x_c.shape[-1]
         check(args, x_c.dtype, x_c.device, Z)
-        if not scratch or scratch[0].shape[1] != Z or scratch[0].dtype != x_c.dtype:
-            scratch[:] = [torch.empty((KERNEL.scratch_elems(ints), Z), dtype=x_c.dtype,
-                                      device=x_c.device)]
+        key = (Z, x_c.dtype, x_c.device)
+        if not scratch or scratch[0] != key:
+            kplan = KERNEL.plan(ints, Z, x_c.dtype, x_c.device.index)
+            scratch[:] = [key, torch.empty((kplan["scratch_elems"],), dtype=x_c.dtype,
+                                           device=x_c.device)]
         nc = len(CONST_ORDER)
         dbl = kernel_scalars(cfg, mtot, x_c.dtype)
         if phase is None:
-            return KERNEL.launch(ints, dbl, args[:nc], args[nc:], scratch[0])
+            return KERNEL.launch(ints, dbl, args[:nc], args[nc:], scratch[1])
         dbl[2] = phase_w_max(cfg)
-        return KERNEL.launch_phase(phase, ints, dbl, args[:nc], args[nc:], scratch[0])
+        return KERNEL.launch_phase(phase, ints, dbl, args[:nc], args[nc:], scratch[1])
 
     return step
 

@@ -8,14 +8,18 @@ Run from the repository root with no arguments:
 Phases, one JSON line each:
 
 0. the card's name and power limit (``nvidia-smi``);
-1. build: nvcc compiles ``csrc/tree_qp_ipm_iter.cu`` (timed, with the
-   ptxas register / spill report);
+1. build: nvcc compiles ``csrc/tree_qp_ipm_iter.cu`` (timed, with ptxas's
+   registers, stack frame and spills for each kernel entry);
 2. the kernel against its plain PyTorch version, both on the card, on real
    QP data from the port's tree build and cost assembly (N=8, NB=2): one
    iteration in f64 at B=256 and at B=32768 (bar 1e-10 of each field's
    magnitude), one in f32 at B=32768 (as accurate as the plain version in
    f32, both measured against the plain version in f64), and a full
-   8-iteration f64 solve at B=256 (max |Δu|, |Δx| reported);
+   8-iteration f64 solve at B=256 (max |Δu|, |Δx| reported); then
+   ``kernel_time``: ms a launch at B=32768 and, after one f32 iteration
+   there held to the same bar, at B=256, beside the plain version's and the
+   bound, with the launch plan (trees a block, resident teams an SM, shared
+   memory a block, scratch bytes in total and a tree);
 3. the main path: ``make_branch_mpc_batched_step`` at the bench config
    (N=8, NB=2, IPM-8 with 2 Gondzio correctors, f32, B=32768, shared policy
    params): one warm-up step and timed warm-started steps, each timed by
@@ -338,6 +342,37 @@ def cvar_iteration_flops(cplan, dims, gondzio, lanes):
                 + (2 + 2 * gondzio) * 2 * 2 * pairs + 3 * 6 * pairs + pairs * (1 + 4)
                 + gondzio * (10 * pairs + carry) + 2 * carry)
     return per_lane * lanes
+
+
+def ptxas_entries(log):
+    """nvcc's ptxas report as one entry a kernel: its name (for K1's
+    templates, dtype and phase), registers, stack frame and spill bytes."""
+    import re
+
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            k = re.search(r"tree_qp_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d)E", name)
+            if k:
+                name = (f"tree_qp_kernel<{'float' if k.group(1) == 'f' else 'double'}, "
+                        f"{k.group(2)}, {k.group(3)}, {k.group(4)}, {k.group(5)}, "
+                        f"PHASE={k.group(6)}>")
+            cur = {"entry": name}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def cuda_ms(fn, reps):
@@ -1252,10 +1287,9 @@ def main() -> int:
     build_wall = time.perf_counter() - t_build
     if errors:
         raise errors[0]
-    ptxas = [ln.strip() for ln in K.build_log.splitlines()
-             if "registers" in ln or "spill" in ln or "stack frame" in ln]
-    emit({"phase": "build", "seconds": round(K.build_seconds, 3), "ptxas": ptxas,
-          "wall_seconds_both": round(build_wall, 3), **card})
+    emit({"phase": "build", "seconds": round(K.build_seconds, 3),
+          "ptxas": ptxas_entries(K.build_log), "wall_seconds_all": round(build_wall, 3),
+          **card})
     ptxas2 = [ln.strip() for ln in K2.build_log.splitlines()
               if "registers" in ln or "spill" in ln or "stack frame" in ln]
     emit({"phase": "build_cvar", "seconds": round(K2.build_seconds, 3), "ptxas": ptxas2,
@@ -1347,19 +1381,31 @@ def main() -> int:
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_FLOPS["float32"] * 1e3
     bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    plan_s, _, su_s = qp_case(dev, 256, torch.float32, cfg)
-    k_ms_256 = cuda_ms(lambda: su_s.step_fn(*su_s.const_args, *su_s.carry0), reps=20)
-    plain_s = plain_step(plan_s)
-    plain_ms_256 = cuda_ms(lambda: plain_s(*su_s.const_args, *su_s.carry0), reps=3)
+    # the latency shape, B=256 (2 trees a block), held to the f32 bar first
+    plan_s, su_s, plain_s, carry_s, _ = one_iteration(256, torch.float32)
+    k_ms_256 = cuda_ms(lambda: su_s.step_fn(*su_s.const_args, *carry_s), reps=20)
+    plain_ms_256 = cuda_ms(lambda: plain_s(*su_s.const_args, *carry_s), reps=3)
     bound_ms_256 = max(iteration_bytes(su_s) / H100_BYTES_PER_S,
                        iteration_flops(plan_s, 4, 4, cfg.gondzio, 256) / H100_FLOPS["float32"]) * 1e3
-    scratch_elems = K.scratch_elems(tree_qp_pl.kernel_ints(plan, cfg, 4, 4))
+    ints = tree_qp_pl.kernel_ints(plan, cfg, 4, 4)
+    kplan = K.plan(ints, BENCH_B, torch.float32, dev.index)
+    kplan_256 = K.plan(ints, 256, torch.float32, dev.index)
+    resident = kplan["trees_per_block"] * kplan["blocks_per_sm"]
+    teams = kplan["blocks"] * kplan["trees_per_block"]
     emit({"phase": "kernel_time", "B": BENCH_B, "dtype": "float32", "ms": k_ms,
           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
           "bytes": nbytes, "flops": flops, "ms_B256": k_ms_256,
           "plain_ms_B256": plain_ms_256, "bound_ms_B256": bound_ms_256,
-          "scratch_bytes_per_lane": scratch_elems * 4, **card})
-    del su, carry, su64
+          # the launch plan (a warp per tree, a persistent grid) and the working
+          # set: shared memory a block, one scratch slot per resident team
+          "trees_per_block": kplan["trees_per_block"], "blocks_per_sm": kplan["blocks_per_sm"],
+          "resident_teams_per_sm": resident, "blocks": kplan["blocks"],
+          "smem_bytes_per_block": kplan["smem_bytes"],
+          "scratch_bytes": kplan["scratch_elems"] * 4,
+          "slot_bytes_per_tree": kplan["scratch_elems"] * 4 // teams,
+          "trees_per_block_B256": kplan_256["trees_per_block"], "blocks_B256": kplan_256["blocks"],
+          **card})
+    del su, carry, su64, su_s, carry_s
 
     # ---- 3. main path --------------------------------------------------------
     pset, model, params = overtake_setup()

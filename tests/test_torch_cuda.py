@@ -195,6 +195,26 @@ def test_kernel_matches_plain_f32(cuda_device):
         assert e_kernel <= 2 * e_plain + 1e-6 * r64.abs().max().item(), name
 
 
+@pytest.mark.parametrize("Bn", [1, 2001])
+def test_kernel_matches_plain_at_ragged_batches(cuda_device, Bn):
+    """f64 at B=1 (one tree in one block) and B=2001 (not a multiple of the
+    trees a block: the last block is part-full), the lanes of the B=6 data
+    repeated with each repeat's multipliers scaled apart; within 1e-10."""
+    su, plain = _setup(torch.float64, cuda_device)
+    idx = torch.arange(Bn, device=cuda_device) % B
+    scale = 1.0 + 1e-3 * torch.arange(Bn, dtype=torch.float64, device=cuda_device)
+    consts = [c if name in ("Fx", "Fu", "bu") else c[..., idx].contiguous()
+              for name, c in zip(tpl.CONST_ORDER, su.const_args)]
+    carry = [(c[..., idx] * (scale if name.startswith("lam") else 1.0)).contiguous()
+             for name, c in zip(tpl.CARRY_ORDER, su.carry0)]
+    got = su.step_fn(*consts, *carry)
+    ref = plain(*consts, *carry)
+    for name, a, b in zip(NAMES, got, ref):
+        assert a.shape[-1] == Bn
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        assert err <= ITER_TOL, (name, Bn, err)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     su, _ = _setup(torch.float64, cuda_device)
     args = list(su.const_args) + list(su.carry0)

@@ -76,7 +76,8 @@ inline EmuIdx blockIdx, blockDim, gridDim;
 // A sense-reversing barrier: a waiter yields its core for a while, then
 // sleeps on the phase (C++20 atomic wait). Cheaper than std::barrier for the
 // thousands of warp barriers a launch takes, and it still sleeps when the
-// machine has fewer cores than threads to run.
+// machine has fewer cores than threads to run. A C++17 build (the SOC
+// kernel's, which starts no thread) yields instead.
 struct EmuBarrier {
   const int n;
   std::atomic<int> count{0};
@@ -87,12 +88,18 @@ struct EmuBarrier {
     if (count.fetch_add(1, std::memory_order_acq_rel) + 1 == n) {
       count.store(0, std::memory_order_relaxed);
       phase.store(ph + 1, std::memory_order_release);
+#if __cplusplus >= 202002L
       phase.notify_all();
+#endif
       return;
     }
     for (int i = 0; i < 64 && phase.load(std::memory_order_acquire) == ph; ++i)
       std::this_thread::yield();
+#if __cplusplus >= 202002L
     phase.wait(ph, std::memory_order_acquire);
+#else
+    while (phase.load(std::memory_order_acquire) == ph) std::this_thread::yield();
+#endif
   }
 };
 struct EmuBlock {
@@ -119,10 +126,13 @@ template <class V> V emu_shfl(V v, unsigned src) {
   __syncwarp();
   return r;
 }
-template <class V> V __shfl_xor_sync(unsigned, V v, int m) {
+// the shuffles of whole warps (width 32, the kernels' teams)
+template <class V> V __shfl_xor_sync(unsigned, V v, int m, int = 32) {
   return emu_shfl(v, (threadIdx.x % 32) ^ (unsigned)m);
 }
-template <class V> V __shfl_sync(unsigned, V v, int src) { return emu_shfl(v, (unsigned)src); }
+template <class V> V __shfl_sync(unsigned, V v, int src, int = 32) {
+  return emu_shfl(v, (unsigned)src);
+}
 template <class F> void emu_launch(unsigned blocks, unsigned threads, size_t smem, F body) {
   gridDim.x = blocks;
   blockDim.x = threads;
