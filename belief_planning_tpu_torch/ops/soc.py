@@ -5,8 +5,10 @@ package's ``ops/pallas_kernels.py``, ``proj_soc_pallas``).
 ``{‖u‖ ≤ t}``; it is the z-update of the CVaR cone ADMM
 (``solvers/cvar.cvar_solve``), one cone per tree stage:
 
-- on a CUDA tensor it launches the hand-written kernel ``csrc/proj_soc.cu``
-  (one thread per row), or raises;
+- on a CUDA tensor it launches the hand-written kernel ``csrc/proj_soc.cu``,
+  or raises: its team path (16-byte vectors, a team of lanes a row) for the
+  ADMM's rows of k = 8 at 16-byte aligned pointers, its general path (one
+  thread per row) for any other k from 1 to 16 or an unaligned view;
 - on a CPU tensor it runs ``solvers.cvar._proj_soc_batch``, the plain
   PyTorch version, which the tests hold against the JAX package.
 """
@@ -27,11 +29,16 @@ KERNEL_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "proj_soc.cu"
 class SOCProjectionKernel:
     """Wrapper of ``csrc/proj_soc.cu`` (replaces the reference's
     ``proj_soc_pallas``). ``launches`` counts the kernel launches, and
-    nothing else; ``build_log`` / ``build_seconds`` are what nvcc printed and
-    took when this process built the library."""
+    nothing else, and ``path_launches`` splits them by the path the kernel
+    took (``"team"`` / ``"general"``); ``build_log`` / ``build_seconds`` are
+    what nvcc printed and took when this process built the library."""
 
-    def __init__(self):
+    PATHS = ("general", "team")
+
+    def __init__(self, source=KERNEL_SOURCE):
+        self.source = Path(source)
         self.launches = 0
+        self.path_launches = dict.fromkeys(self.PATHS, 0)
         self.build_log = ""
         self.build_seconds = 0.0
         self._lib = None
@@ -39,13 +46,16 @@ class SOCProjectionKernel:
     def load(self):
         """Build (nvcc, at first use) and load the kernel library."""
         if self._lib is None:
-            path, self.build_log, self.build_seconds = build_shared_library(KERNEL_SOURCE)
+            path, self.build_log, self.build_seconds = build_shared_library(self.source)
             lib = ctypes.CDLL(str(path))
             for name in ("bp_proj_soc_f32", "bp_proj_soc_f64"):
                 fn = getattr(lib, name)
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+            if hasattr(lib, "bp_proj_soc_path"):      # else an earlier source: one path
+                lib.bp_proj_soc_path.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                lib.bp_proj_soc_path.restype = ctypes.c_int
             lib.bp_proj_soc_max_k.argtypes = []
             lib.bp_proj_soc_max_k.restype = ctypes.c_int
             self._lib = lib
@@ -61,14 +71,17 @@ class SOCProjectionKernel:
                              f"{lib.bp_proj_soc_max_k()}")
         out = torch.empty_like(v)
         fn = lib.bp_proj_soc_f64 if v.dtype == torch.float64 else lib.bp_proj_soc_f32
+        src, dst = ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr())
+        path = (self.PATHS[lib.bp_proj_soc_path(src, dst, k)]
+                if hasattr(lib, "bp_proj_soc_path") else "general")
         with torch.cuda.device(v.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = fn(ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-                     ctypes.c_longlong(rows), ctypes.c_int(k), ctypes.c_int(v.device.index),
-                     ctypes.c_void_p(stream))
+            err = fn(src, dst, ctypes.c_longlong(rows), ctypes.c_int(k),
+                     ctypes.c_int(v.device.index), ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(f"proj_soc launch failed: CUDA error {err}")
         self.launches += 1
+        self.path_launches[path] += 1
         return out
 
 

@@ -50,14 +50,17 @@ Phases, one JSON line each:
    8-iteration f64 restart through the double kernel);
 6. the cone-ADMM slice (``solvers/cvar.cvar_solve``, kernel
    ``csrc/proj_soc.cu``): ``build_soc``; ``soc_kernel_vs_plain`` (f64 at
-   1e-14 and f32 at 1e-6 of each input row's magnitude, tie rows exact);
-   ``soc_kernel_time`` (32768 × 97 rows, k = 8, f32 and f64, held to the
-   same bars); ``soc_kernel_on_admm_rows`` (every projection of one
-   400-iteration f64 solve at B=32768 also run by the plain version, and
-   on the rows cast to f32, at the same bars);
-   ``admm_main_path`` (a batched 400-iteration solve of the CVaR overtake
-   at B=32768 in f64, where the reference converges: solve ms, prim_res,
-   J, K3's share of device time, exactly iters + 2 launches);
+   1e-14 and f32 at 1e-6 of each input row's magnitude, tie rows exact;
+   the team path on rows of k = 8, the general path on rows of k = 5 and
+   on the k = 8 rows at a view that is not 16-byte aligned, each launch's
+   path checked); ``soc_kernel_time`` (32768 × 97 rows, k = 8, f32 and
+   f64, held to the same bars; GB/s and share of the bound);
+   ``soc_kernel_on_admm_rows`` (every projection of one 400-iteration f64
+   solve at B=32768 also run by the plain version, and on the rows cast to
+   f32, at the same bars); ``admm_main_path`` (a batched 400-iteration
+   solve of the CVaR overtake at B=32768 in f64, where the reference
+   converges: solve ms, prim_res, J, K3's share of device time, exactly
+   iters + 2 launches, all on the team path);
    ``admm_vs_cpu`` (the same in f64 at B=64, card against CPU: |Δu| held
    at 1e-7 after 30 and after 400 iterations, |Δx| reported);
 7. the K1 profile (the phase kernels of ``csrc/tree_qp_ipm_iter.cu``):
@@ -73,8 +76,8 @@ Phases, one JSON line each:
    64 chained products: fma and 3xtf32 at the f32 accuracy bar, bf16 within
    2⁻⁷·Σ|Fx|·|cur| of every output and different from the f32 result);
    ``shared_rows_time`` (``scripts/torch_port_mxu_probe.py`` at both
-   sizes: ms per launch, TFLOP/s and the bound per mode, with every launch
-   counted); ``qp_ipm_main_path`` (``make_branch_mpc_step`` on the QP
+   sizes: ms per launch, TFLOP/s, the bound and the share of it per mode,
+   the probe's verdict line, with every launch counted); ``qp_ipm_main_path`` (``make_branch_mpc_step`` on the QP
    overtake, ``QPIPMConfig()`` defaults, f32, B=32768: a cold step, then a
    timed warm step and a profiled one); ``qp_ipm_pin`` (K1 in f64 at
    B=1024 against the per-tree step over two warm-carried steps at the main
@@ -345,21 +348,36 @@ def cvar_iteration_flops(cplan, dims, gondzio, lanes):
 
 
 def ptxas_entries(log):
-    """nvcc's ptxas report as one entry a kernel: its name (for K1's
-    templates, dtype and phase), registers, stack frame and spill bytes."""
+    """nvcc's ptxas report as one entry a kernel: its name (for K1's, K3's
+    and K5's templates, their arguments), registers, stack frame and spill
+    bytes, and ``wgmma_serialized`` where ptxas reports that it serialized
+    the kernel's ``wgmma`` instructions (C7514)."""
     import re
 
-    out, cur = [], None
+    out, cur, serialized = [], None, set()
+    real = lambda c: "float" if c == "f" else "double"
     for ln in log.splitlines():
+        m = re.search(r"\(C7514\).*function '([^']+)'", ln)
+        if m:
+            serialized.add(m.group(1))
+            continue
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            name = m.group(1)
+            name = mangled = m.group(1)
             k = re.search(r"tree_qp_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d)E", name)
             if k:
-                name = (f"tree_qp_kernel<{'float' if k.group(1) == 'f' else 'double'}, "
+                name = (f"tree_qp_kernel<{real(k.group(1))}, "
                         f"{k.group(2)}, {k.group(3)}, {k.group(4)}, {k.group(5)}, "
                         f"PHASE={k.group(6)}>")
-            cur = {"entry": name}
+            k = re.search(r"shared_rows_wgmma_kernelILi(\d)ELi(\d)E", name)
+            if k:
+                name = (f"shared_rows_wgmma_kernel<{'bf16' if k.group(1) == '1' else '3xtf32'}, "
+                        f"chains={k.group(2)}>")
+            k = re.search(r"(shared_rows_fma_kernel|proj_soc_team_kernel|proj_soc_kernel)I([fd])E",
+                          name)
+            if k:
+                name = f"{k.group(1)}<{real(k.group(2))}>"
+            cur = {"entry": name, "mangled": mangled}
             out.append(cur)
             continue
         if cur is None:
@@ -372,6 +390,10 @@ def ptxas_entries(log):
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             cur["registers"] = int(m.group(1))
+    for e in out:
+        mangled = e.pop("mangled")
+        if any(mangled.startswith(n) or n.startswith(mangled) for n in serialized):
+            e["wgmma_serialized"] = True
     return out
 
 
@@ -742,20 +764,39 @@ def run_admm_phases(dev, card, K3):
         row_mag = v.abs().amax(1).clamp(min=torch.finfo(v.dtype).tiny)
         return ((got - ref).abs().amax(1) / row_mag).amax().item()
 
-    for dtype, rows in ((f64, 1 << 20), (f32, 1 << 20)):
-        v = soc_test_rows(rows, dtype, dev)
+    def general_k5(v):            # rows of length 5: the general path
+        return v[:, :5].contiguous()
+
+    def general_unaligned(v):     # the k = 8 rows one scalar past a 16-byte boundary
+        buf = torch.empty(v.numel() + 1, dtype=v.dtype, device=v.device)
+        view = buf[1:].view(v.shape)
+        view.copy_(v)
+        return view
+
+    # the team path (k = 8, aligned: the ADMM's rows), then the general path
+    # on rows of length 5 and on an unaligned view of the same rows
+    cases = [(dtype, path, make) for dtype in (f64, f32)
+             for path, make in (("team", None), ("general", general_k5),
+                                ("general", general_unaligned))]
+    for dtype, path, make in cases:
+        v = soc_test_rows(1 << 20, dtype, dev)
+        if make is not None:
+            v = make(v)
+        before = dict(K3.path_launches)
         got = proj_soc(v)
         torch.cuda.synchronize()
+        took = [q for q in K3.path_launches if K3.path_launches[q] != before[q]]
         ref = _proj_soc_batch(v)
         rel = row_scaled(got, ref, v)
         ties_exact = bool(torch.equal(got[:3], ref[:3]))
-        emit({"phase": "soc_kernel_vs_plain", "dtype": str(dtype)[6:], "rows": rows + 6,
-              "k": SOC_K, "worst_row_scaled": rel, "tol_row_scaled": bars[dtype],
+        emit({"phase": "soc_kernel_vs_plain", "dtype": str(dtype)[6:], "rows": v.shape[0],
+              "k": v.shape[1], "aligned_16B": v.data_ptr() % 16 == 0, "path": took,
+              "worst_row_scaled": rel, "tol_row_scaled": bars[dtype],
               "max_abs_err": (got - ref).abs().max().item(), "ties_exact": ties_exact, **card})
-        if not (rel <= bars[dtype] and ties_exact):
+        if not (rel <= bars[dtype] and ties_exact and took == [path]):
             raise AssertionError(f"proj_soc kernel disagrees with its plain version: {rel:.3e} "
-                                 f"> {bars[dtype]:.0e} of an input row's magnitude ({dtype}), "
-                                 "or a tie row differs")
+                                 f"> {bars[dtype]:.0e} of an input row's magnitude ({dtype}, "
+                                 f"{path} path; took {took}), or a tie row differs")
         del v, got, ref
 
     # ---- its time at the ADMM path's shape, f32 and f64 -------------------------
@@ -777,6 +818,7 @@ def run_admm_phases(dev, card, K3):
                              max_abs_err=err)
         emit({"phase": "soc_kernel_time", "rows": rows, "k": SOC_K, "dtype": str(dtype)[6:],
               "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+              "share_of_bound": bound_ms / k_ms, "path_launches": dict(K3.path_launches),
               "bytes": nbytes, "flops": flops, "GB_per_s": nbytes / k_ms / 1e6,
               "max_abs_err": err, "worst_row_scaled": rel, "tol_row_scaled": bars[dtype],
               **card})
@@ -823,11 +865,12 @@ def run_admm_phases(dev, card, K3):
     # JAX package as in the port (scripts/torch_port_admm_chaos.py overtake_f32).
     torch.cuda.synchronize()
     K3.launches = 0
+    K3.path_launches = dict.fromkeys(K3.PATHS, 0)
     t0 = time.perf_counter()
     x, u, s, st, aux = cvar_solve(*args, cfg=cfg)
     u_host = u.cpu()
     solve_s = time.perf_counter() - t0
-    launches = K3.launches
+    launches, paths = K3.launches, dict(K3.path_launches)
     finite = all(bool(t.isfinite().all()) for t in (x, u_host, s, st.risk, aux["prim_res"],
                                                     aux["J"]))
     shapes_ok = (tuple(u.shape) == (BENCH_B, topo.totalu, d)
@@ -837,7 +880,7 @@ def run_admm_phases(dev, card, K3):
     emit({"phase": "admm_main_path", "config": "cvar_overtake", "B": BENCH_B, "N": 8, "NB": 2,
           "m": 3, "ralpha": 0.9, "dtype": "float64", "admm_iters": cfg.iters,
           "solve_ms": solve_s * 1e3, "solves_per_s": BENCH_B / solve_s,
-          "launches": launches, "launches_expected": cfg.iters + 2,
+          "launches": launches, "launches_expected": cfg.iters + 2, "path_launches": paths,
           "finite": finite, "shapes_ok": shapes_ok,
           "prim_res_p50": float(aux["prim_res"].median()),
           "prim_res_max": float(aux["prim_res"].max()), "J_p50": float(aux["J"].median()),
@@ -847,9 +890,9 @@ def run_admm_phases(dev, card, K3):
           **card})
     if not (finite and shapes_ok):
         raise AssertionError("ADMM main path: non-finite outputs or wrong shapes")
-    if launches != cfg.iters + 2:
-        raise AssertionError(f"ADMM main path: {launches} proj_soc launches, expected "
-                             f"{cfg.iters + 2}")
+    if launches != cfg.iters + 2 or paths["team"] != launches:
+        raise AssertionError(f"ADMM main path: {launches} proj_soc launches ({paths}), expected "
+                             f"{cfg.iters + 2}, all on the team path")
     del x, u, s, st, aux, args
     torch.cuda.empty_cache()
 
@@ -1294,14 +1337,10 @@ def main() -> int:
               if "registers" in ln or "spill" in ln or "stack frame" in ln]
     emit({"phase": "build_cvar", "seconds": round(K2.build_seconds, 3), "ptxas": ptxas2,
           "wall_seconds_both": round(build_wall, 3), **card})
-    ptxas3 = [ln.strip() for ln in K3.build_log.splitlines()
-              if "registers" in ln or "spill" in ln or "stack frame" in ln]
-    emit({"phase": "build_soc", "seconds": round(K3.build_seconds, 3), "ptxas": ptxas3,
-          "wall_seconds_all": round(build_wall, 3), **card})
-    ptxas5 = [ln.strip() for ln in K5.build_log.splitlines()
-              if "registers" in ln or "spill" in ln or "stack frame" in ln]
-    emit({"phase": "build_shared_rows", "seconds": round(K5.build_seconds, 3), "ptxas": ptxas5,
-          "wall_seconds_all": round(build_wall, 3), **card})
+    emit({"phase": "build_soc", "seconds": round(K3.build_seconds, 3),
+          "ptxas": ptxas_entries(K3.build_log), "wall_seconds_all": round(build_wall, 3), **card})
+    emit({"phase": "build_shared_rows", "seconds": round(K5.build_seconds, 3),
+          "ptxas": ptxas_entries(K5.build_log), "wall_seconds_all": round(build_wall, 3), **card})
 
     # ---- 2. kernel vs plain version on the card ----------------------------
     cfg = QPIPMConfig(iters=8, gondzio=2)

@@ -1,8 +1,9 @@
-"""K2 (``csrc/cvar_ipm_iter.cu``) or K1 (``csrc/tree_qp_ipm_iter.cu``, with
-its profile phases) against other builds of itself, on one CUDA card, timed
-in turns.
+"""K2 (``csrc/cvar_ipm_iter.cu``), K1 (``csrc/tree_qp_ipm_iter.cu``, with
+its profile phases), K3 (``csrc/proj_soc.cu``) or K5
+(``csrc/shared_rows_probe.cu``) against other builds of itself, on one CUDA
+card, timed in turns.
 
-    python scripts/torch_port_cvar_kernel_ab.py [--kernel cvar|qp] OTHER [OTHER ...]
+    python scripts/torch_port_cvar_kernel_ab.py [--kernel cvar|qp|soc|shared_rows] OTHER [OTHER ...]
 
 Each OTHER is either a kernel source with the same C interface, for example
 an earlier commit's, unpacked with ``git archive <commit>
@@ -27,6 +28,17 @@ B=32768. Each other build's outputs are compared with the current one's
 line for the builds (nvcc seconds, ptxas lines), one a shape and other build
 (both launch plans, ms in both turns, speedup of the current build), then
 the card's name and power limit.
+
+K3 (``--kernel soc``): the projection at ``chip_smoke.py``'s
+``soc_kernel_time`` shape (32768 × 97 rows, k = 8, f64 and f32, 20 launches
+a turn); OTHER may be a source without the path query ``bp_proj_soc_path``
+(an earlier one, with the general path only); a name in ``SOC_VARIANTS`` changes the team path's loads in flight.
+K5 (``--kernel shared_rows``): each mode at ``shared_rows_time``'s shapes
+(64 chained products of B=4096 × 25 and 32768 × 97 nodes, tile 128, 8
+launches a turn); a name in ``SR_VARIANTS`` changes the tensor-core design.
+Both compare each other build's outputs with the current one's (max |other
+- current|, f64 for K3 scaled by the largest input) and print every
+instantiation's ptxas registers, stack and spills (``chip_smoke.ptxas_entries``).
 """
 
 import ctypes
@@ -41,6 +53,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from belief_planning_tpu_torch.ops import shared_rows, soc  # noqa: E402
 from belief_planning_tpu_torch.solvers import cvar_pl, tree_qp_pl  # noqa: E402
 from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig  # noqa: E402
 from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig  # noqa: E402
@@ -69,21 +82,60 @@ QP_VARIANTS = {
     "team16": [(QP_TEAM, "constexpr int kTeam = 16;")],
 }
 QP_SHAPES = ((32768, 5), (256, 20))
+
+SOC_UNROLL = "constexpr int kUnroll = 4;"
+SOC_VARIANTS = {
+    # 2 or 8 loads of 16 bytes in flight a thread (32 / 128 B)
+    "unroll2": [(SOC_UNROLL, "constexpr int kUnroll = 2;")],
+    "unroll8": [(SOC_UNROLL, "constexpr int kUnroll = 8;")],
+}
+SOC_SHAPES = ((32768 * 97, torch.float64, 20), (32768 * 97, torch.float32, 20))
+SR_STEP = """      wg_wait<0>();
+#pragma unroll
+      for (int c = 0; c < G; ++c) pin(acc[c]);
+#pragma unroll
+      for (int c = 0; c < G; ++c) {
+        M::prepare(acc[c], dv[c], a[c]);
+        wg_fence();
+        M::template issue<0>(acc[c], a[c], desc0, desc1);
+        if constexpr (M::kPasses > 1) M::template issue<1>(acc[c], a[c], desc0, desc1);
+      }
+      wg_commit();"""
+SR_VARIANTS = {
+    # each chain waits for its own previous products (wgmma.wait_group<chains - 1>)
+    "staggered": [(SR_STEP, """#pragma unroll
+      for (int c = 0; c < G; ++c) {
+        wg_wait<G - 1>();
+        pin(acc[c]);
+        M::prepare(acc[c], dv[c], a[c]);
+        wg_fence();
+        M::template issue<0>(acc[c], a[c], desc0, desc1);
+        if constexpr (M::kPasses > 1) M::template issue<1>(acc[c], a[c], desc0, desc1);
+        wg_commit();
+      }""")],
+    # a measurement, not the function: the A operands formed at the first
+    # step only, so that a step is the wait, the fences and the products
+    "products_only": [(SR_STEP, SR_STEP.replace("M::prepare", "if (it == 0) M::prepare"))],
+}
+SR_SHAPES = ((4096, 25, 8), (32768, 97, 8))
+SOURCES = {"cvar": (lambda: cvar_pl.KERNEL_SOURCE, lambda: VARIANTS),
+           "qp": (lambda: tree_qp_pl.KERNEL_SOURCE, lambda: QP_VARIANTS),
+           "soc": (lambda: soc.KERNEL_SOURCE, lambda: SOC_VARIANTS),
+           "shared_rows": (lambda: shared_rows.KERNEL_SOURCE, lambda: SR_VARIANTS)}
 QP_PHASE_SHAPES = ((2048, 12), (32768, 12))
 
 
 def source_of(other: str, kernel: str = "cvar") -> Path:
     """The source file of OTHER (a path, or a variant written out)."""
-    variants = VARIANTS if kernel == "cvar" else QP_VARIANTS
+    base, variants = (f() for f in SOURCES[kernel])
     if other not in variants:
         return Path(other)
-    base = cvar_pl.KERNEL_SOURCE if kernel == "cvar" else tree_qp_pl.KERNEL_SOURCE
     src = base.read_text()
     for old, new in variants[other]:
         if src.count(old) != 1:
             raise RuntimeError(f"variant {other}: {old!r} not found once in the source")
         src = src.replace(old, new)
-    out = BUILD_DIR / "ab" / f"{other}{'' if kernel == 'cvar' else '_qp'}.cu"
+    out = BUILD_DIR / "ab" / f"{other}{'' if kernel == 'cvar' else '_' + kernel}.cu"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(src)
     return out
@@ -206,6 +258,88 @@ def qp_main(others, dev, card) -> int:
     return 0
 
 
+def build_all(builds):
+    """Build every library in parallel; print their nvcc seconds and ptxas
+    entries (one a kernel instantiation)."""
+    threads = [threading.Thread(target=b.load) for b in builds.values()]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for tag, b in builds.items():
+        if b._lib is None:
+            raise RuntimeError(f"the build of {tag} failed")
+    return {"phase": "build", **{f"{t}_seconds": round(b.build_seconds, 3)
+                                 for t, b in builds.items()},
+            **{f"{t}_ptxas": cs.ptxas_entries(b.build_log) for t, b in builds.items()}}
+
+
+def in_turns(builds, run, others, reps):
+    """ms per launch of each build: current, others, others reversed, current."""
+    ms = {t: [] for t in builds}
+    for t in ["current", *others, *reversed(others), "current"]:
+        ms[t].append(cs.cuda_ms(lambda: run(t), reps))
+    return ms
+
+
+def soc_main(others, dev, card) -> int:
+    """K3: the current source against OTHERS, in turns, on the ADMM's rows."""
+    builds = {"current": soc.SOCProjectionKernel()}
+    for o in others:
+        builds[o] = soc.SOCProjectionKernel(source_of(o, "soc"))
+    print(json.dumps({**build_all(builds), **card}), flush=True)
+    for rows, dtype, reps in SOC_SHAPES:
+        v = cs.soc_test_rows(rows - 6, dtype, dev, seed=1)
+        ms = in_turns(builds, lambda t: builds[t].launch(v), others, reps)
+        ref = builds["current"].launch(v)
+        nbytes = 2 * v.numel() * v.element_size()
+        mag = v.abs().max().item()
+        for o in others:
+            diff = (builds[o].launch(v) - ref).abs().max().item()
+            print(json.dumps({"phase": "soc_kernel_ab", "rows": rows, "k": v.shape[1],
+                              "dtype": str(dtype)[6:], "reps": reps, "other": o,
+                              "path_current": dict(builds["current"].path_launches),
+                              "path_other": dict(builds[o].path_launches),
+                              "current_ms": ms["current"], "other_ms": ms[o],
+                              "current_GB_per_s": nbytes / min(ms["current"]) / 1e6,
+                              "other_GB_per_s": nbytes / min(ms[o]) / 1e6,
+                              "speedup_of_current": sum(ms[o]) / sum(ms["current"]),
+                              "max_diff_over_input_max": diff / mag, **card}), flush=True)
+        del v, ref
+        torch.cuda.empty_cache()
+    print(card["nvidia_smi"], flush=True)
+    return 0
+
+
+def shared_rows_main(others, dev, card) -> int:
+    """K5: every mode of the current source against OTHERS, in turns."""
+    probe = cs.load_script("torch_port_mxu_probe")
+    builds = {"current": shared_rows.SharedRowsKernel()}
+    for o in others:
+        builds[o] = shared_rows.SharedRowsKernel(source_of(o, "shared_rows"))
+    print(json.dumps({**build_all(builds), **card}), flush=True)
+    inner, tile = 64, 128
+    for B, nodes, reps in SR_SHAPES:
+        Fx, dx = probe.probe_inputs(B, nodes, dev)
+        for mode in shared_rows.MODES:
+            ms = in_turns(builds, lambda t: builds[t].launch(Fx, dx, inner, mode, tile), others,
+                          reps)
+            ref = builds["current"].launch(Fx, dx, inner, mode, tile)
+            b_ms, b_by = probe.bound(mode, B, nodes, inner)
+            for o in others:
+                diff = (builds[o].launch(Fx, dx, inner, mode, tile) - ref).abs().max().item()
+                print(json.dumps({"phase": "shared_rows_ab", "B": B, "nodes": nodes,
+                                  "inner": inner, "tile": tile, "mode": mode, "reps": reps,
+                                  "other": o, "current_ms": ms["current"], "other_ms": ms[o],
+                                  "bound_ms": b_ms, "bound_by": b_by,
+                                  "speedup_of_current": sum(ms[o]) / sum(ms["current"]),
+                                  "max_diff": diff, **card}), flush=True)
+        del Fx, dx
+        torch.cuda.empty_cache()
+    print(card["nvidia_smi"], flush=True)
+    return 0
+
+
 def main(others) -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -214,10 +348,11 @@ def main(others) -> int:
     card = {"card": torch.cuda.get_device_name(0), "nvidia_smi": cs.nvidia_smi_line()}
     if others and others[0] == "--kernel":
         kernel, others = others[1], others[2:]
-        if kernel == "qp":
-            return qp_main(others, dev, card)
+        if kernel in ("qp", "soc", "shared_rows"):
+            return {"qp": qp_main, "soc": soc_main,
+                    "shared_rows": shared_rows_main}[kernel](others, dev, card)
         if kernel != "cvar":
-            raise ValueError(f"--kernel {kernel}: expected cvar or qp")
+            raise ValueError(f"--kernel {kernel}: expected cvar, qp, soc or shared_rows")
     kernels = {"current": cvar_pl.FusedCVaRIterationKernel()}
     kernels.update({o: cvar_pl.FusedCVaRIterationKernel(source_of(o)) for o in others})
     threads = [threading.Thread(target=k.load) for k in kernels.values()]

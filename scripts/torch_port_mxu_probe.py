@@ -6,16 +6,19 @@ by every lane, ``dx`` lane-major, K = 4, N = 4)?
 The kernel (``csrc/shared_rows_probe.cu``, wrapped by
 ``belief_planning_tpu_torch.ops.shared_rows``) chains ``inner`` products of
 every node and lane in one launch, three ways: CUDA-core f32 FMAs (the
-reference's VPU broadcast-sum), a one-pass bf16 ``mma.sync`` (its default
-MXU dot) and three TF32 ``mma.sync`` passes (its HIGHEST MXU dot). Each mode
+reference's VPU broadcast-sum), a one-pass bf16 ``wgmma`` (its default MXU
+dot) and three TF32 passes in two ``wgmma`` products (its HIGHEST MXU dot),
+the tensor-core modes with several nodes packed into one product. Each mode
 is launched once to warm up, then ``PROBE_REPS`` times in a row, timed with
 CUDA events; the result is ms per launch. Inputs are drawn from numpy seed 0
 as the reference draws them. Needs a CUDA card:
 
     python scripts/torch_port_mxu_probe.py
 
-Env: PROBE_T (128, lanes a block), PROBE_NODES (25), PROBE_INNER (64),
-PROBE_REPS (8), PROBE_B (4096).
+Env: PROBE_T (128: lanes a block in the fma mode, a multiple of 32; lanes a
+warpgroup's work item in the tensor-core modes, 64 a chain, so a multiple of
+64; at most 512), PROBE_NODES (25), PROBE_INNER (64), PROBE_REPS (8),
+PROBE_B (4096).
 """
 
 import json
@@ -113,9 +116,13 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    tile = env("PROBE_T", "128")
+    if not (64 <= tile <= 512 and tile % 64 == 0):
+        print(f"torch_port_mxu_probe: PROBE_T={tile}: every mode takes a multiple of 64 "
+              "from 64 to 512", file=sys.stderr)
+        return 2
     out = probe(B=env("PROBE_B", "4096"), nodes=env("PROBE_NODES", "25"),
-                inner=env("PROBE_INNER", "64"), reps=env("PROBE_REPS", "8"),
-                tile=env("PROBE_T", "128"))
+                inner=env("PROBE_INNER", "64"), reps=env("PROBE_REPS", "8"), tile=tile)
     for line in out["lines"]:
         print(line, flush=True)
     print(json.dumps({k: v for k, v in out.items() if k != "lines"}), flush=True)

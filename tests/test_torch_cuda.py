@@ -402,7 +402,8 @@ def test_shared_rows_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     bad = [(Fx, dx.double(), 8, "bf16", 128), (Fx, dx[:, :3], 8, "fma", 128),
            (Fx, dx.transpose(0, 2).contiguous().transpose(0, 2), 8, "fma", 128),
            (Fx.cpu(), dx, 8, "fma", 128), (Fx, dx, 0, "fma", 128), (Fx, dx, 8, "fma", 48),
-           (Fx, dx, 8, "fma", 1024), (Fx.t(), dx, 8, "3xtf32", 128)]
+           (Fx, dx, 8, "fma", 1024), (Fx.t(), dx, 8, "3xtf32", 128), (Fx, dx, 8, "bf16", 96),
+           (Fx, dx, 8, "3xtf32", 32)]
     for args in bad:
         with pytest.raises(ValueError):
             sr.shared_rows(*args)

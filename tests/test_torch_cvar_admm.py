@@ -5,7 +5,9 @@
   to 1e-15 of each input row's magnitude, tie rows included (‖u‖ = t, ‖u‖ = −t,
   u = 0 with t < 0, t = 0);
 - ``cvar_solve`` on the CVaR overtake (N=3, NB=1, m=3, ralpha 0.9), 2
-  trees, without ``S`` and with a shared ``S`` and a per-tree dh[0] floor:
+  trees built by the port (``test_torch_tree.py`` holds that build against
+  the JAX package's) and handed to both, without ``S`` and with a shared
+  ``S`` and a per-tree dh[0] floor:
   x, u, s, t, risk, z4, y4, ``prim_res`` and ``J`` within 1e-9 of their
   magnitude after ``iters=2`` (three ADMM iterations), and within 1e-7
   after ``iters=30``.
@@ -34,10 +36,12 @@ from belief_planning_tpu.solvers.cvar import _proj_soc_batch as j_proj_soc_batch
 from belief_planning_tpu.solvers.cvar import _psd_sqrt as j_psd_sqrt
 from belief_planning_tpu.solvers.cvar import build_cvar_plan as j_build_cvar_plan
 from belief_planning_tpu.solvers.cvar import cvar_solve as j_cvar_solve
-from belief_planning_tpu.tree.engine import build_tree as j_build_tree
+from belief_planning_tpu.tree.engine import TreeState as JTreeState
 from belief_planning_tpu.tree.topology import build_topology as j_build_topology
 
-from belief_planning_tpu_torch.convert import convert_cvar_config, convert_tree_state
+from belief_planning_tpu_torch.convert import convert, convert_cvar_config
+from belief_planning_tpu_torch.models import policies as tpol
+from belief_planning_tpu_torch.models.predictive import highway_model
 from belief_planning_tpu_torch.ops.soc import proj_soc
 from belief_planning_tpu_torch.solvers.cvar import (
     _proj_soc_batch,
@@ -45,6 +49,7 @@ from belief_planning_tpu_torch.solvers.cvar import (
     build_cvar_plan,
     cvar_solve,
 )
+from belief_planning_tpu_torch.tree.engine import build_tree
 from belief_planning_tpu_torch.tree.topology import build_topology
 
 from tests.test_torch_cuda import soc_rows
@@ -70,9 +75,14 @@ def solves():
     S = np.eye(4)
     S[1, 0] = -0.15
     floor = np.arange(B) % 2 == 0
-    cplan = build_cvar_plan(build_topology(N, NB, model.m, 4, 2))
-    ts = jax.jit(jax.vmap(lambda x, z, ul: j_build_tree(model, topo, x, z, ul, pset.params)))(
-        xs, zs, u_lin)
+    ttopo = build_topology(N, NB, model.m, 4, 2)
+    cplan = build_cvar_plan(ttopo)
+    _, tcons, tpp = convert(params, cons, pset.params, "cpu")
+    tmodel = highway_model(tcons, tpol.PolicySet(fns=(tpol.maintain, tpol.brake,
+                                                      tpol.lane_change), params=tpp), N=N, dt=0.1)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64)
+    tts = build_tree(tmodel, ttopo, t(xs), t(zs), t(u_lin), tpp)
+    ts = JTreeState(*(a.numpy() for a in tts))
     jcfg = JCVaRConfig(rho4=10.0, rho5=10.0, rho_eq=10.0, rho_sign=10.0)
     out = {}
     for case, S_, floor_ in (("no_S", None, None), ("S_floor", S, floor)):
@@ -91,7 +101,7 @@ def solves():
         for iters in SOLVE_TOL:
             jres = jsolve(ts, xs, fl_in, iters)
             x, u, s, st, aux = cvar_solve(
-                cplan, convert_tree_state(ts, "cpu"), params.Q, params.R, params.Qslack,
+                cplan, tts, params.Q, params.R, params.Qslack,
                 params.xRef, RALPHA, params.Fx, params.bx, params.Fu, params.bu,
                 torch.as_tensor(xs), S=S_,
                 cfg=convert_cvar_config(dataclasses.replace(jcfg, iters=iters)),

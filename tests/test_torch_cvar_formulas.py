@@ -67,10 +67,10 @@ def test_ref_line_lookup_and_gradient():
     # inside, on knots, beyond both ends, and a repeated knot
     xs = np.concatenate([np.linspace(-20.0, 120.0, 301), tY.xs[:5], [tY.xs[-1] + 3.0]])
     for jl, tl in ((jY, tY), (jpsi, tpsi)):
-        want = np.asarray(jax.vmap(jl)(jnp.asarray(xs)))
+        want = np.asarray(jax.jit(jax.vmap(jl))(jnp.asarray(xs)))
         got = tl(torch.as_tensor(xs)).numpy()
         assert np.abs(got - want).max() < TOL
-        jg = np.asarray(jax.vmap(jax.grad(jl))(jnp.asarray(xs)))
+        jg = np.asarray(jax.jit(jax.vmap(jax.grad(jl)))(jnp.asarray(xs)))
         tg = torch.func.vmap(torch.func.grad(tl))(torch.as_tensor(xs)).numpy()
         assert np.abs(tg - jg).max() < TOL
     dup = jpol.RefLine(xs=np.array([0.0, 1.0, 1.0, 2.0]), ys=np.array([0.0, 1.0, 5.0, 6.0]))
@@ -89,7 +89,7 @@ def test_merge_policies(with_ref):
     xs = np.array([20.0, 8.0, 19.0, -0.1]) + rng.normal(0, [15.0, 1.0, 2.0, 0.05], (16, 4))
     for jfn, jp, tfn, tp in zip(jset.fns, jset.params, (tpol.maintain_track_v, tpol.brake),
                                 tparams):
-        want = np.asarray(jax.vmap(lambda x: jfn(x, jp))(jnp.asarray(xs)))
+        want = np.asarray(jax.jit(jax.vmap(lambda x: jfn(x, jp)))(jnp.asarray(xs)))
         got = tfn(torch.as_tensor(xs), tp).numpy()
         assert np.abs(got - want).max() < TOL
     if with_ref:
@@ -115,7 +115,7 @@ def test_merge_model_branch_eval(with_ref):
     tp_, tdp = tmodel.branch_eval(torch.as_tensor(x0), torch.as_tensor(z0), tparams)
     assert np.abs(tp_.numpy() - np.asarray(p)).max() < TOL
     assert np.abs(tdp.numpy() - np.asarray(dp)).max() < TOL
-    h, dh = jax.vmap(jmodel.col_raw)(x0, z0)
+    h, dh = jax.jit(jax.vmap(jmodel.col_raw))(x0, z0)
     th, tdh = tmodel.col_raw(torch.as_tensor(x0), torch.as_tensor(z0))
     assert np.abs(th.numpy() - np.asarray(h)).max() < TOL
     assert np.abs(tdh.numpy() - np.asarray(dh)).max() < TOL
@@ -163,7 +163,7 @@ def test_gj_inverse():
     rng = np.random.default_rng(0)
     G = rng.normal(0, 1, (6, 6, 5))
     M = np.eye(6)[:, :, None] + np.einsum("ikt,jkt->ijt", G, G)     # SPD, diagonal ≥ 1
-    want = np.asarray(jcv._gj_inv_bl(jnp.asarray(M)))
+    want = np.asarray(jax.jit(jcv._gj_inv_bl)(jnp.asarray(M)))
     got = cvar_pl._gj_inv_bl(torch.as_tensor(M)).numpy()
     assert np.abs(got - want).max() < TOL
     assert np.abs(np.einsum("ijt,jkt->ikt", M, got) - np.eye(6)[:, :, None]).max() < 1e-10
@@ -176,7 +176,7 @@ def test_gj_pivoted_solve_with_row_swaps():
     A[0, :, 0, 1] = 2.0                     # a tie in column 0: the first maximal row wins
     A[0, 0, 0, 1] = 1.0
     Bm = rng.normal(0, 1, (3, 5, 7, 4))
-    want = np.asarray(jcv._gj_solve_pivot_bl(jnp.asarray(A), jnp.asarray(Bm)))
+    want = np.asarray(jax.jit(jcv._gj_solve_pivot_bl)(jnp.asarray(A), jnp.asarray(Bm)))
     got = cvar_pl._gj_solve_pivot_bl(torch.as_tensor(A), torch.as_tensor(Bm)).numpy()
     assert np.abs(got - want).max() < TOL
     assert np.abs(np.einsum("bijt,bjrt->birt", A, got) - Bm).max() < 1e-10

@@ -3,12 +3,15 @@
 The kernel (``belief_planning_tpu_torch/csrc/cvar_ipm_iter.cu``) runs only on
 a card. Its arithmetic is plain C++ apart from the CUDA keywords, the
 barriers, the warp shuffles, shared memory and the launch. ``STUB`` emulates
-those with threads, so g++ builds the source into a shared library that the
-same ctypes interface drives on CPU tensors: a launch runs the blocks of the
-grid one after another, each as one ``std::thread`` per CUDA thread;
-``__syncthreads`` is a ``std::barrier`` of the block, ``__syncwarp`` one of
-the warp; a shuffle goes through a per-block exchange array between two waits
-of the warp's barrier; dynamic shared memory is a per-block buffer. Device
+those, so g++ builds the source into a shared library that the same ctypes
+interface drives on CPU tensors: a launch runs the blocks of the grid one
+after another on the calling thread, each as one fiber per CUDA thread (a
+stack of its own, switched by a few lines of x86-64 assembly); a fiber runs
+until it waits at ``__syncthreads`` (the block's barrier) or ``__syncwarp``
+(its warp's), and the last to arrive releases the others, so no thread
+spins or sleeps; a shuffle goes through a per-block exchange array between
+two waits of the warp's barrier; dynamic shared memory is a per-block
+buffer. Device
 d is an emulated card of d + 1 SMs with one resident block an SM: on device
 0 the persistent grid walks over the batch in rounds when B > 8, and on
 device 3 a small batch spreads over 4 blocks of 2 trees, as B=256 does over
@@ -39,11 +42,14 @@ from tests.test_torch_cuda import CVAR_NAMES, ITER_TOL, cvar_setup
 torch.set_num_threads(1)
 
 STUB = """#pragma once
-#include <atomic>
+#include <algorithm>
 #include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
+#include <functional>
 #include <memory>
-#include <thread>
 #include <vector>
 #define __device__
 #define __host__
@@ -53,6 +59,11 @@ STUB = """#pragma once
 #define __launch_bounds__(...)
 #define __align__(x) alignas(x)
 typedef void* cudaStream_t;
+// the 16-byte vectors and the streaming loads and stores of the SOC kernel
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) double2 { double x, y; };
+template <class V> inline V __ldcs(const V* p) { return *p; }
+template <class V> inline void __stcs(V* p, V v) { *p = v; }
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount, cudaDevAttrMaxSharedMemoryPerBlockOptin };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
@@ -71,51 +82,83 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t
   return cudaSuccess;
 }
 struct EmuIdx { unsigned x; };
-inline thread_local EmuIdx threadIdx;
-inline EmuIdx blockIdx, blockDim, gridDim;
-// A sense-reversing barrier: a waiter yields its core for a while, then
-// sleeps on the phase (C++20 atomic wait). Cheaper than std::barrier for the
-// thousands of warp barriers a launch takes, and it still sleeps when the
-// machine has fewer cores than threads to run. A C++17 build (the SOC
-// kernel's, which starts no thread) yields instead.
-struct EmuBarrier {
-  const int n;
-  std::atomic<int> count{0};
-  std::atomic<unsigned> phase{0};
-  explicit EmuBarrier(int n_) : n(n_) {}
-  void arrive_and_wait() {
-    const unsigned ph = phase.load(std::memory_order_acquire);
-    if (count.fetch_add(1, std::memory_order_acq_rel) + 1 == n) {
-      count.store(0, std::memory_order_relaxed);
-      phase.store(ph + 1, std::memory_order_release);
-#if __cplusplus >= 202002L
-      phase.notify_all();
-#endif
-      return;
-    }
-    for (int i = 0; i < 64 && phase.load(std::memory_order_acquire) == ph; ++i)
-      std::this_thread::yield();
-#if __cplusplus >= 202002L
-    phase.wait(ph, std::memory_order_acquire);
-#else
-    while (phase.load(std::memory_order_acquire) == ph) std::this_thread::yield();
-#endif
-  }
-};
+inline EmuIdx threadIdx, blockIdx, blockDim, gridDim;
+// A block runs on the calling thread as one fiber a CUDA thread: a fiber runs
+// until it waits at a barrier (__syncthreads, or __syncwarp for its warp),
+// then the next runnable fiber of the block runs; the last to arrive at a
+// barrier releases the others. emu_switch saves the callee-saved registers
+// and the stack pointer of one fiber (x86-64 System V) and resumes another.
+extern "C" void emu_switch(void** save_sp, void* next_sp);
+asm(R"(
+  .text
+  .p2align 4
+  .hidden emu_switch
+  .globl emu_switch
+  .type emu_switch, @function
+emu_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+  .size emu_switch, .-emu_switch
+)");
 struct EmuBlock {
-  EmuBarrier block;
-  std::vector<std::unique_ptr<EmuBarrier>> warps;
+  static constexpr size_t kStack = 1 << 20;   // bytes a fiber (touched as used)
+  struct Fiber {
+    void* sp = nullptr;
+    int waiting = 0;                          // 1: at the block barrier, 2: at its warp's
+    bool done = false;
+  };
+  unsigned n;
+  std::vector<Fiber> fib;
+  std::unique_ptr<char[]> stacks;
+  void* sched_sp = nullptr;
+  unsigned cur = 0, at_block = 0;
+  std::vector<unsigned> at_warp;
   std::vector<unsigned long long> xch;
   std::vector<unsigned char> smem;
-  EmuBlock(unsigned threads, size_t bytes) : block((int)threads), xch(threads), smem(bytes) {
-    for (unsigned w = 0; w < threads / 32; ++w) warps.emplace_back(new EmuBarrier(32));
-  }
+  std::function<void()> body;
+  EmuBlock(unsigned threads, size_t bytes)
+      : n(threads), fib(threads), stacks(new char[threads * kStack]),
+        at_warp((threads + 31) / 32), xch(threads), smem(bytes) {}
 };
 inline EmuBlock* emu_block;
-inline void __syncthreads() { emu_block->block.arrive_and_wait(); }
-inline void __syncwarp(unsigned = 0xffffffffu) {
-  emu_block->warps[threadIdx.x / 32]->arrive_and_wait();
+[[noreturn]] inline void emu_fiber_main() {
+  EmuBlock* b = emu_block;
+  b->body();
+  b->fib[b->cur].done = true;
+  emu_switch(&b->fib[b->cur].sp, b->sched_sp);
+  __builtin_unreachable();
 }
+// arrive at a barrier of `members` fibers (kind 1: the block, 2: the warp of
+// fiber `cur`); the last to arrive releases the others and goes on
+inline void emu_arrive(int kind) {
+  EmuBlock* b = emu_block;
+  const unsigned me = b->cur, w = me / 32;
+  unsigned& count = kind == 1 ? b->at_block : b->at_warp[w];
+  const unsigned lo = kind == 1 ? 0 : 32 * w;
+  const unsigned hi = kind == 1 ? b->n : std::min(b->n, lo + 32);
+  if (++count == hi - lo) {
+    count = 0;
+    for (unsigned t = lo; t < hi; ++t) b->fib[t].waiting = 0;
+    return;
+  }
+  b->fib[me].waiting = kind;
+  emu_switch(&b->fib[me].sp, b->sched_sp);
+}
+inline void __syncthreads() { emu_arrive(1); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_arrive(2); }
 template <class V> V emu_shfl(V v, unsigned src) {
   static_assert(sizeof(V) <= sizeof(unsigned long long), "shuffle of at most 8 bytes");
   const unsigned t = threadIdx.x;
@@ -139,10 +182,33 @@ template <class F> void emu_launch(unsigned blocks, unsigned threads, size_t sme
   for (unsigned b = 0; b < blocks; ++b) {
     blockIdx.x = b;
     EmuBlock blk(threads, smem);
+    blk.body = body;
     emu_block = &blk;
-    std::vector<std::thread> th;
-    for (unsigned t = 0; t < threads; ++t) th.emplace_back([&body, t] { threadIdx.x = t; body(); });
-    for (auto& x : th) x.join();
+    for (unsigned t = 0; t < threads; ++t) {
+      // a fresh stack: emu_fiber_main's return slot (16-byte aligned below
+      // it), its entry as emu_switch's return address, six zeroed registers
+      auto top = reinterpret_cast<uintptr_t>(blk.stacks.get() + (t + 1) * EmuBlock::kStack);
+      auto* sp = reinterpret_cast<void**>((top & ~uintptr_t(15)) - 8);
+      *--sp = reinterpret_cast<void*>(&emu_fiber_main);
+      for (int r = 0; r < 6; ++r) *--sp = nullptr;
+      blk.fib[t].sp = sp;
+    }
+    for (unsigned left = threads; left > 0;) {
+      bool ran = false;
+      for (unsigned t = 0; t < threads; ++t) {
+        EmuBlock::Fiber& f = blk.fib[t];
+        if (f.done || f.waiting) continue;
+        blk.cur = t;
+        threadIdx.x = t;
+        emu_switch(&blk.sched_sp, f.sp);
+        ran = true;
+        if (f.done) --left;
+      }
+      if (!ran) {
+        std::fprintf(stderr, "emu_launch: every fiber of block %u waits at a barrier\\n", b);
+        std::abort();
+      }
+    }
   }
 }
 using std::isfinite;

@@ -3,7 +3,7 @@
 The kernel (``belief_planning_tpu_torch/csrc/tree_qp_ipm_iter.cu``) runs only
 on a card: a warp per tree, warp barriers and shuffles, dynamic shared memory
 and a persistent grid. ``STUB`` of ``test_torch_cvar_kernel_cpu_build.py``
-emulates those with one ``std::thread`` per CUDA thread, so g++ builds the
+emulates those with one fiber per CUDA thread, so g++ builds the
 source into a shared library that the same ctypes interface drives on CPU
 tensors; device d is an emulated card of d + 1 SMs. This holds the kernel
 source's iteration against ``make_iteration`` on real QP data (N=4, NB=2,

@@ -1,7 +1,8 @@
 """The port's independent tree-QP IPM (``solvers/tree_qp_ipm.qp_ipm_solve``,
 batched over trees) against the JAX package's ``qp_ipm_solve`` under
 ``vmap``, on identical trees and costs (the overtake tree of
-``tests/test_tree_qp.py``, N=4, NB=2, 3 trees, f64): a cold start, a warm
+``tests/test_tree_qp.py``, N=4, NB=2, 3 trees, f64, built by the port, which
+``test_torch_tree.py`` holds against the JAX package's build): a cold start, a warm
 primal, 2 Gondzio correctors and a dense ``Fxc_override`` block. Bars (the
 JAX package's own pins): every gap of the 10 iterations within rtol 1e-8
 (atol 1e-10, where the gaps reach roundoff), u < 1e-7, x < 1e-6.
@@ -18,22 +19,23 @@ import numpy as np
 import pytest
 import torch
 
-from belief_planning_tpu.solvers.tree_qp import assemble_stage_cost as j_assemble
+from belief_planning_tpu.solvers.tree_qp import StageCost as JStageCost
 from belief_planning_tpu.solvers.tree_qp import build_stage_plan as j_build_stage_plan
 from belief_planning_tpu.solvers.tree_qp_ipm import QPIPMConfig as JQPIPMConfig
 from belief_planning_tpu.solvers.tree_qp_ipm import qp_ipm_solve as j_qp_ipm_solve
-from belief_planning_tpu.tree.engine import build_tree as j_build_tree
+from belief_planning_tpu.tree.engine import TreeState as JTreeState
 from belief_planning_tpu.tree.topology import build_topology as j_build_topology
 
 from belief_planning_tpu_torch.controllers.branch_mpc import (
     make_branch_mpc_batched_step,
     make_branch_mpc_step,
 )
-from belief_planning_tpu_torch.convert import convert, convert_tree_state
+from belief_planning_tpu_torch.convert import convert
 from belief_planning_tpu_torch.models import policies as tpol
 from belief_planning_tpu_torch.models.predictive import highway_model
-from belief_planning_tpu_torch.solvers.tree_qp import StageCost, build_stage_plan
+from belief_planning_tpu_torch.solvers.tree_qp import assemble_stage_cost, build_stage_plan
 from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig, qp_ipm_solve
+from belief_planning_tpu_torch.tree.engine import build_tree
 from belief_planning_tpu_torch.tree.topology import build_topology
 
 from tests.test_tree_qp import overtake_setup
@@ -67,12 +69,16 @@ def case():
     zs = np.array([9.0, 1.8, 17.0, 0.0]) + rng.normal(0, 0.2, (B, 4))
     xRef = np.array([0.0, 1.8, 18.0, 0.0])
 
-    def prep(x, z):
-        ts = j_build_tree(model, topo, x, z, jnp.zeros((topo.totalu, 2)), pset.params)
-        return ts, j_assemble(topo, ts, params.Q, params.R, params.Qf, params.dR, params.Qslack,
-                              xRef, jnp.zeros(2))
-
-    ts, cost = jax.jit(jax.vmap(prep))(xs, zs)
+    t = lambda a: torch.as_tensor(np.array(a), dtype=torch.float64)
+    tmodel, tparams, tpp = _port_model(params, cons, pset)
+    ttopo = build_topology(N, NB, 3, 4, 2)
+    tts = build_tree(tmodel, ttopo, t(xs), t(zs),
+                     torch.zeros(B, topo.totalu, 2, dtype=torch.float64), tpp)
+    tcost = assemble_stage_cost(ttopo, tts, tparams.Q, tparams.R, tparams.Qf, tparams.dR,
+                                tparams.Qslack, t(np.tile(xRef, (B, 1))),
+                                torch.zeros(B, 2, dtype=torch.float64))
+    ts = JTreeState(*(a.numpy() for a in tts))
+    cost = JStageCost(*(c.numpy() for c in tcost))
     warm = (np.asarray(ts.x_lin) + rng.normal(0, 0.05, ts.x_lin.shape),
             np.asarray(ts.u_lin) + rng.normal(0, [0.3, 0.02], ts.u_lin.shape))
     Fxc, b1 = _override(ts, params, rng)
@@ -93,10 +99,7 @@ def case():
         "override": jsolve(JQPIPMConfig(iters=ITERS), True)(
             ts, cost, xs, ts.x_lin, ts.u_lin, Fxc, b1),
     }
-    t = lambda a: torch.as_tensor(np.array(a), dtype=torch.float64)
-    tts = convert_tree_state(ts, "cpu")
-    tcost = StageCost(*(t(getattr(cost, f)) for f in StageCost._fields))
-    plan = build_stage_plan(build_topology(N, NB, 3, 4, 2))
+    plan = build_stage_plan(ttopo)
     args = (plan, tcost, tts, params.Fx, params.bx, params.Fu, params.bu, t(xs),
             torch.zeros(B, 2, dtype=torch.float64))
     cfg = QPIPMConfig(iters=ITERS)
@@ -149,8 +152,8 @@ def test_batch_of_trees_is_independent(case):
             assert (part[3][key][0] - whole[3][key][i]).abs().max().item() <= 1e-12
 
 
-def _port_model(case):
-    params, cons, pp = convert(case["params"], case["cons"], case["pset"].params, "cpu")
+def _port_model(params, cons, pset):
+    params, cons, pp = convert(params, cons, pset.params, "cpu")
     fns = (tpol.maintain, tpol.brake, tpol.lane_change)
     return highway_model(cons, tpol.PolicySet(fns=fns, params=pp), N=N, dt=0.1), params, pp
 
@@ -159,7 +162,7 @@ def test_per_tree_step_pins_the_fused_step(case):
     """The fused batched step (plain version of K1's iteration) against the
     independent per-tree step: two receding-horizon steps with the warm
     carry, 8 trees, IPM-14 (``tests/test_tree_qp_pl.py``'s pin)."""
-    model, params, pp = _port_model(case)
+    model, params, pp = _port_model(case["params"], case["cons"], case["pset"])
     ipm = QPIPMConfig(iters=14)
     Bp = 8
     rng = np.random.default_rng(3)
@@ -184,7 +187,7 @@ def test_per_tree_step_pins_the_fused_step(case):
 
 
 def test_admm_solver_is_not_ported(case):
-    model, params, _ = _port_model(case)
+    model, params, _ = _port_model(case["params"], case["cons"], case["pset"])
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
         make_branch_mpc_step(model, params, "prox", solver="admm", device="cpu")
 

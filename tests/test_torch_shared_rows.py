@@ -18,7 +18,14 @@ and the launch replaced by a loop over blocks and threads: f64 within 1e-12
 of the plain version's magnitude (g++ without FMA contraction; the kernel's
 fma() calls round once where the plain version rounds twice), f32 as
 accurate as the plain version in f32 (error against f64 ≤ 2 × the plain
-f32's + 1e-6 × the magnitude)."""
+f32's + 1e-6 × the magnitude).
+
+The tensor-core modes' ``wgmma`` code runs only on a card; their packing of
+nodes into one product (``wgmma_packing``) runs here as ``packed_product``,
+the block-diagonal product in plain PyTorch, chained and held against the
+plain version of the mode at the f32 bar (bf16, 3xtf32) and against the
+exact product at 4 × it (3xtf32), at a node count that leaves the last
+group part-full."""
 
 import ctypes
 import re
@@ -136,6 +143,27 @@ def test_wrapper_on_cpu_runs_the_plain_mode():
     assert sr.KERNEL.launches == before
 
 
+@pytest.mark.parametrize("mode", ["bf16", "3xtf32"])
+def test_packed_product_matches_plain(mode):
+    """The kernel's packing (p nodes a product, B block-diagonal) chained in
+    plain PyTorch: within the f32 bar of the plain version of the mode; every
+    node and row in each of A's and D's columns once."""
+    p, a_cols, d_cols = sr.wgmma_packing(mode)
+    assert len(a_cols) == len(d_cols) == 4 * p
+    assert sorted(a_cols) == sorted(d_cols) == [(nd, k) for nd in range(p) for k in range(4)]
+    assert NODES % p != 0
+    Fx, dx = (torch.as_tensor(a) for a in _inputs(np.float32))
+    acc = torch.zeros_like(dx)
+    for _ in range(INNER):
+        acc = sr.packed_product(Fx, dx + sr.CHAIN * acc, mode)
+    want = sr.shared_rows_plain(Fx, dx, INNER, mode)
+    bar = _f32_bar(*_inputs(np.float32))
+    assert ((acc.double() - want.double()).abs().numpy() <= bar).all()
+    if mode == "3xtf32":
+        exact = sr.shared_rows_plain(Fx.double(), dx.double(), INNER)
+        assert ((acc.double() - exact).abs().numpy() <= 4 * bar).all()
+
+
 STUB = """#pragma once
 #include <cmath>
 #define __device__
@@ -144,7 +172,7 @@ STUB = """#pragma once
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorNotSupported = 801 };
 inline int cudaGetLastError() { return 0; }
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1)
@@ -214,6 +242,12 @@ def test_kernel_source_rejects_what_it_does_not_take(cpu_kernel):
         args = list(base)
         args[i] = bad
         assert cpu_kernel.bp_shared_rows_f32(0, *args) != 0
-    # the tensor-core modes are left out of this build
-    assert cpu_kernel.bp_shared_rows_f32(1, *base) != 0
-    assert cpu_kernel.bp_shared_rows_f32(2, *base) != 0
+    # the tensor-core modes take `tile` lanes a work item, a multiple of 64
+    # from 64 to 512; their code is left out of this build, which checks the
+    # arguments and then reports "not supported" (801)
+    for mode in (1, 2):
+        for tile, err in ((32, 1), (96, 1), (1024, 1), (64, 801), (128, 801), (512, 801)):
+            args = list(base)
+            args[6] = tile
+            assert cpu_kernel.bp_shared_rows_f32(mode, *args) == err, (mode, tile)
+    assert cpu_kernel.bp_shared_rows_f32(3, *base) == 1

@@ -1,8 +1,9 @@
 """The port's tree LQR (factor, linear sweep, forward rollout) against the JAX
 package's, on the overtake tree of ``tests/test_tree_qp.py`` (N=4, NB=2, 3
-trees, f64, the prox stage cost with its rate couplings): every field within
-1e-9 of its magnitude, in both ``affine`` modes. Also the closed-form small
-inverse for d = 1, 2, 3."""
+trees, f64, the prox stage cost with its rate couplings), built by the port
+(``test_torch_tree.py`` holds that build against the JAX package's) and
+handed to both: every field within 1e-9 of its magnitude, in both
+``affine`` modes. Also the closed-form small inverse for d = 1, 2, 3."""
 
 import jax
 import jax.numpy as jnp
@@ -10,24 +11,27 @@ import numpy as np
 import pytest
 import torch
 
+from belief_planning_tpu.solvers.tree_qp import StageCost as JStageCost
 from belief_planning_tpu.solvers.tree_qp import _small_inv as j_small_inv
-from belief_planning_tpu.solvers.tree_qp import assemble_stage_cost as j_assemble
 from belief_planning_tpu.solvers.tree_qp import build_stage_plan as j_build_stage_plan
 from belief_planning_tpu.solvers.tree_qp import tree_lqr_factor as j_factor
 from belief_planning_tpu.solvers.tree_qp import tree_lqr_forward as j_forward
 from belief_planning_tpu.solvers.tree_qp import tree_lqr_linear as j_linear
-from belief_planning_tpu.tree.engine import build_tree as j_build_tree
+from belief_planning_tpu.tree.engine import TreeState as JTreeState
 from belief_planning_tpu.tree.topology import build_topology as j_build_topology
 
-from belief_planning_tpu_torch.convert import convert_tree_state
+from belief_planning_tpu_torch.convert import convert
+from belief_planning_tpu_torch.models.policies import highway_policy_set
+from belief_planning_tpu_torch.models.predictive import highway_model
 from belief_planning_tpu_torch.solvers.tree_qp import (
-    StageCost,
     _small_inv,
+    assemble_stage_cost,
     build_stage_plan,
     tree_lqr_factor,
     tree_lqr_forward,
     tree_lqr_linear,
 )
+from belief_planning_tpu_torch.tree.engine import build_tree
 from belief_planning_tpu_torch.tree.topology import build_topology
 
 from tests.test_tree_qp import overtake_setup
@@ -41,35 +45,36 @@ FACTOR_FIELDS = ["K", "Hinv", "Acl", "Bmat", "Amat", "hvec", "vec1", "gu"]
 
 @pytest.fixture(scope="module")
 def lqr():
-    """Tree, cost, factor, both linear sweeps and both rollouts of 3 trees
-    through the JAX package (one jit), and the port's on the same trees."""
+    """Factor, both linear sweeps and both rollouts of 3 trees through the
+    JAX package (one jit) and the port, on the same trees and costs."""
     cons, pset, model, params = overtake_setup(N=N, NB=NB)
-    topo = j_build_topology(N, NB, model.m, 4, 2)
-    jplan = j_build_stage_plan(topo)
+    jplan = j_build_stage_plan(j_build_topology(N, NB, model.m, 4, 2))
     rng = np.random.default_rng(31)
     xs = np.array([0.0, 1.8, 20.0, 0.0]) + rng.normal(0, [0.3, 0.3, 1.0, 0.05], (B, 4))
     zs = np.array([9.0, 1.8, 17.0, 0.0]) + rng.normal(0, [1.0, 0.5, 1.0, 0.05], (B, 4))
+    topo = build_topology(N, NB, model.m, 4, 2)
     u_lin = rng.normal(0, [1.0, 0.1], (B, topo.totalu, 2))
     u_old = rng.normal(0, [1.0, 0.1], (B, 2))
     xRef = np.array([0.0, 1.8, 18.0, 0.0])
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64)
+    tparams, tcons, tpp = convert(params, cons, pset.params, "cpu")
+    tmodel = highway_model(tcons, highway_policy_set(tcons, tpp[2].x_target), N=N, dt=0.1)
+    ts = build_tree(tmodel, topo, t(xs), t(zs), t(u_lin), tpp)
+    cost = assemble_stage_cost(topo, ts, tparams.Q, tparams.R, tparams.Qf, tparams.dR,
+                               tparams.Qslack, t(np.tile(xRef, (B, 1))), t(u_old))
 
-    def one(x, z, ul, uo):
-        ts = j_build_tree(model, topo, x, z, ul, pset.params)
-        cost = j_assemble(topo, ts, params.Q, params.R, params.Qf, params.dR, params.Qslack,
-                          xRef, uo, variant="prox", replicate_quirks=True)
+    def one(ts, cost, x, uo):
         fac = j_factor(jplan, cost, ts)
-        out = {"ts": ts, "cost": cost, "fac": fac._replace(k_fix=0.0)}
+        out = {"fac": fac._replace(k_fix=0.0)}
         for affine in (True, False):
             kff = j_linear(jplan, fac, cost.qx, cost.qu, cost.qterm, affine=affine)
             out[f"kff_{affine}"] = kff
             out[f"fwd_{affine}"] = j_forward(jplan, fac, kff, x, uo, affine=affine)
         return out
 
-    jout = jax.jit(jax.vmap(one))(xs, zs, u_lin, u_old)
-    t = lambda a: torch.as_tensor(np.array(a), dtype=torch.float64)
-    ts = convert_tree_state(jout["ts"], "cpu")
-    cost = StageCost(*(t(getattr(jout["cost"], f)) for f in StageCost._fields))
-    plan = build_stage_plan(build_topology(N, NB, 3, 4, 2))
+    jout = jax.jit(jax.vmap(one))(JTreeState(*(a.numpy() for a in ts)),
+                                  JStageCost(*(c.numpy() for c in cost)), xs, u_old)
+    plan = build_stage_plan(topo)
     fac = tree_lqr_factor(plan, cost, ts)
     tout = {"fac": fac}
     for affine in (True, False):

@@ -165,7 +165,9 @@ def test_phase_matches_jax_profile(case, phase, carry):
     got = tpl.make_phase(case["plan"], case["cfg"], nFx, nFu, mtot, phase)(*su.const_args, *cy)
     jcfg = JQPIPMConfig(iters=6, gondzio=GONDZIO)
     jargs = [case["jconsts"][k] for k in jpl.CONST_ORDER] + [np.asarray(c.numpy()) for c in cy]
-    want = _jax_profile_phase(case["jplan"], jcfg, phase)(*jargs)
+    # one jit a phase, shared by both carries (the same shapes)
+    body = case.setdefault(("jax_phase", phase), _jax_profile_phase(case["jplan"], jcfg, phase))
+    want = body(*jargs)
     err = _scaled(got.numpy(), want)
     assert err <= ITER_TOL, (phase, carry, err)
 
