@@ -13,6 +13,6 @@ This package never imports ``jax`` or ``belief_planning_tpu``.
 
 __version__ = "0.1.0"
 
-from belief_planning_tpu_torch.utils.config import BranchConstants, BranchMPCParams
+from belief_planning_tpu_torch.utils.config import BranchConstants, BranchMPCParams, QuadConstants
 
-__all__ = ["BranchConstants", "BranchMPCParams"]
+__all__ = ["BranchConstants", "BranchMPCParams", "QuadConstants"]

@@ -1,11 +1,12 @@
 """Carry parameters over from the JAX package's objects to this package's.
 
 The JAX package's ``BranchMPCParams`` / ``BranchConstants`` /
-``CVaRIPMConfig`` / ``CVaRConfig`` hold numpy arrays, floats and ints, its
-``TreeState`` holds arrays (numpy after ``np.asarray``), and its policy params
-are NamedTuples (``MaintainParams``, ``MaintainTrackVParams``,
-``BrakeParams``, ``LaneChangeParams``) of arrays, some with a reference line
-(``RefLine``) in ``psiref``. These functions read them by field name (this
+``QuadConstants`` / ``CVaRIPMConfig`` / ``CVaRConfig`` hold numpy arrays,
+floats and ints, its ``TreeState`` holds arrays (numpy after ``np.asarray``),
+and its policy params are NamedTuples (``MaintainParams``,
+``MaintainTrackVParams``, ``BrakeParams``, ``LaneChangeParams``,
+``ForwardParams``) of arrays, some with a reference line (``RefLine``) in
+``psiref``, or ``None`` (the quadruped's stop policy). These functions read them by field name (this
 package imports nothing of the JAX package) and return this package's
 equivalents, so both packages compute from identical numbers.
 """
@@ -19,6 +20,7 @@ import torch
 
 from belief_planning_tpu_torch.models.policies import (
     BrakeParams,
+    ForwardParams,
     LaneChangeParams,
     MaintainParams,
     MaintainTrackVParams,
@@ -27,20 +29,23 @@ from belief_planning_tpu_torch.models.policies import (
 from belief_planning_tpu_torch.solvers.cvar import CVaRConfig
 from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig
 from belief_planning_tpu_torch.tree.engine import TreeState
-from belief_planning_tpu_torch.utils.config import BranchConstants, BranchMPCParams
+from belief_planning_tpu_torch.utils.config import BranchConstants, BranchMPCParams, QuadConstants
 
 _POLICY_PARAMS = {
     "MaintainParams": MaintainParams,
     "MaintainTrackVParams": MaintainTrackVParams,
     "BrakeParams": BrakeParams,
     "LaneChangeParams": LaneChangeParams,
+    "ForwardParams": ForwardParams,
 }
+_CONSTANTS = {"BranchConstants": BranchConstants, "QuadConstants": QuadConstants}
 
 
-def convert_constants(cons) -> BranchConstants:
-    """A ``BranchConstants``-like dataclass → this package's ``BranchConstants``."""
-    return BranchConstants(**{f.name: float(getattr(cons, f.name))
-                              for f in dataclasses.fields(BranchConstants)})
+def convert_constants(cons):
+    """A ``BranchConstants``- or ``QuadConstants``-like dataclass → this
+    package's class of the same name."""
+    cls = _CONSTANTS[type(cons).__name__]
+    return cls(**{f.name: float(getattr(cons, f.name)) for f in dataclasses.fields(cls)})
 
 
 def convert_mpc_params(params) -> BranchMPCParams:
@@ -82,6 +87,9 @@ def convert_policy_params(policy_params, device, dtype=torch.float64):
     this package's ``RefLine``)."""
     out = []
     for p in policy_params:
+        if p is None:
+            out.append(None)
+            continue
         cls = _POLICY_PARAMS.get(type(p).__name__)
         if cls is None:
             raise TypeError(f"no counterpart for policy params {type(p).__name__}")

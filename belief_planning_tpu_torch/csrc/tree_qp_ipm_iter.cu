@@ -89,8 +89,25 @@ constexpr int kMaxTeams = 8;     // trees per block
 constexpr int kMaxThreads = kTeam * kMaxTeams;
 constexpr int kStageBatch = 16;  // loads in flight a thread while staging
 constexpr unsigned kFull = 0xffffffffu;
-// the dims the kernel is instantiated for: state, input, state rows + 1, input rows
-constexpr int kNX = 4, kNU = 2, kNC = 5, kNF = 4;
+
+// The dims a build instantiates the kernel for: state n, input d, state rows
+// nFx (0: only the collision row is left) and input rows nFu. One library
+// is built for each set, e.g. nvcc -DBP_QP_N=3 -DBP_QP_D=3 -DBP_QP_NFX=0
+// -DBP_QP_NFU=6 (the quadruped); the default is the highway overtake's. The
+// plain version takes any dims.
+#ifndef BP_QP_N
+#define BP_QP_N 4
+#define BP_QP_D 2
+#define BP_QP_NFX 4
+#define BP_QP_NFU 4
+#endif
+template <int NX_, int NU_, int NFX_, int NFU_>
+struct QpDims {
+  static_assert(NX_ >= 1 && NU_ >= 1 && NU_ <= 3 && NFX_ >= 0 && NFU_ >= 1,
+                "n >= 1, 1 <= d <= 3, nFx >= 0, nFu >= 1");
+  static constexpr int NX = NX_, NU = NU_, NC = NFX_ + 1, NF = NFU_;
+};
+using Built = QpDims<BP_QP_N, BP_QP_D, BP_QP_NFX, BP_QP_NFU>;
 
 // Sums over the complementarity pairs (1,358 a tree at the main path's
 // size) accumulate in double, also in the float instantiation: per-lane
@@ -1409,7 +1426,7 @@ bool parse_dims(const int* ints, Dims* dm) {
   int* f[kNHeader] = {&dm->n, &dm->d, &dm->m, &dm->nlev, &dm->nFx, &dm->nFu, &dm->totalu,
                       &dm->totalx, &dm->nbr, &dm->gondzio};
   for (int i = 0; i < kNHeader; ++i) *f[i] = ints[i];
-  if (dm->nlev < 1 || dm->nlev > kMaxLevels || dm->nFx < 1 || dm->nFu < 1 || dm->m < 1 ||
+  if (dm->nlev < 1 || dm->nlev > kMaxLevels || dm->nFx < 0 || dm->nFu < 1 || dm->m < 1 ||
       dm->gondzio < 0)
     return false;
   int bo = 0;
@@ -1428,14 +1445,15 @@ bool parse_dims(const int* ints, Dims* dm) {
   return bo == dm->nbr && dm->leaf[dm->nlev - 1] == 1;
 }
 
-// the kernel's algebra is instantiated for these sizes
+// the kernel's algebra is instantiated for this build's dims alone
 bool dims_supported(const Dims& dm) {
-  return dm.n == kNX && dm.d == kNU && dm.nFx + 1 == kNC && dm.nFu == kNF;
+  return dm.n == Built::NX && dm.d == Built::NU && dm.nFx + 1 == Built::NC &&
+         dm.nFu == Built::NF;
 }
 
 template <typename T, int PHASE>
 auto kernel_of() {
-  return tree_qp_kernel<T, kNX, kNU, kNC, kNF, PHASE>;
+  return tree_qp_kernel<T, Built::NX, Built::NU, Built::NC, Built::NF, PHASE>;
 }
 
 // The launch shape for B trees: teams (trees) a block, resident blocks an
@@ -1457,7 +1475,7 @@ int make_plan(const Dims& dm, long long B, int device, Plan* pl) {
   if (err != cudaSuccess) return (int)err;
   const long long fixed =
       (long long)n_shared(dm) * sizeof(T) + (long long)n_table_ints(dm) * sizeof(int);
-  const long long per_team = (long long)make_sm_layout<kNX, kNU>(dm).total * sizeof(T);
+  const long long per_team = (long long)make_sm_layout<Built::NX, Built::NU>(dm).total * sizeof(T);
   long long tmax = (optin - fixed) / per_team;
   if (tmax > kMaxTeams) tmax = kMaxTeams;
   if (tmax < 1) return (int)cudaErrorInvalidValue;
@@ -1561,17 +1579,17 @@ int launch(int phase, const void* const* ptrs, const int* ints, const double* db
   T* dst[] = {&P.reg, &P.tau, &P.wmax, &P.gap_tol, &P.mtot, &P.bmin, &P.bmax};
   for (int i = 0; i < 7; ++i) *dst[i] = T(dbl[i]);
   P.ly = make_layout(P.dm);
-  P.sm = make_sm_layout<kNX, kNU>(P.dm);
+  P.sm = make_sm_layout<Built::NX, Built::NU>(P.dm);
   const unsigned blocks = (unsigned)pl.blocks, threads = (unsigned)(pl.teams * kTeam);
   const size_t smem = (size_t)pl.smem;
   if (phase == 0)
-    tree_qp_kernel<T, kNX, kNU, kNC, kNF, 0>
+    tree_qp_kernel<T, Built::NX, Built::NU, Built::NC, Built::NF, 0>
         <<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(P);
   else if (phase == 1)
-    tree_qp_kernel<T, kNX, kNU, kNC, kNF, 1>
+    tree_qp_kernel<T, Built::NX, Built::NU, Built::NC, Built::NF, 1>
         <<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(P);
   else
-    tree_qp_kernel<T, kNX, kNU, kNC, kNF, 2>
+    tree_qp_kernel<T, Built::NX, Built::NU, Built::NC, Built::NF, 2>
         <<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(P);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 """Backup policies ``u = policy(x, params)`` (the reference package's
-``models/policies.py``: the highway set and the merge set).
+``models/policies.py``: the highway, merge and quadruped sets).
 
 Parameters are NamedTuples of tensors or floats, passed at call time. The
 merge scenario's policies may carry a reference line (``psiref``, a
@@ -105,6 +105,22 @@ def lane_change(x, p: LaneChangeParams):
     ], dim=-1)
 
 
+class ForwardParams(NamedTuple):
+    v0: Any
+
+
+def quad_forward(x, p: ForwardParams):
+    """Quadruped: walk forward at ``v0`` (input ``(vx, vy, ω)``)."""
+    z = torch.zeros_like(x[..., 0])
+    return torch.stack([p.v0 + z, z, z], dim=-1)
+
+
+def quad_stop(x, p=None):
+    """Quadruped: stop."""
+    z = torch.zeros_like(x[..., 0])
+    return torch.stack([z, z, z], dim=-1)
+
+
 PolicyFn = Callable[[Any, Any], Any]
 
 
@@ -140,13 +156,18 @@ def merge_policy_set(cons, v0, psiref: Optional[RefLine]) -> PolicySet:
     )
 
 
+def quadruped_policy_set(v0) -> PolicySet:
+    """The quadruped demo's [forward, stop] set."""
+    return PolicySet(fns=(quad_forward, quad_stop), params=(ForwardParams(v0=v0), None))
+
+
 def cast_params(params, dtype, device):
     """Every leaf of a tuple of policy NamedTuples as a tensor of ``dtype`` on
-    ``device`` (a ``None`` ref line stays ``None``)."""
+    ``device`` (a ``None`` ref line or parameter set stays ``None``)."""
     def leaf(v):
         if v is None:
             return None
         if isinstance(v, RefLine):
             return RefLine(*(torch.as_tensor(a, dtype=dtype, device=device) for a in v))
         return torch.as_tensor(v, dtype=dtype, device=device)
-    return tuple(type(p)(*(leaf(v) for v in p)) for p in params)
+    return tuple(None if p is None else type(p)(*(leaf(v) for v in p)) for p in params)

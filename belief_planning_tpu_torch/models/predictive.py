@@ -1,6 +1,6 @@
 """Predictive model: dynamics, backup rollouts, branch probabilities and the
 collision constraint (the reference package's ``models/predictive.py``:
-the highway and merge models).
+the highway, merge and quadruped models).
 
 Functions take states with optional leading batch dimensions; the Jacobians
 (``branch_eval``'s ``dp``, ``col_raw``'s ``dh``) are per-sample
@@ -17,7 +17,7 @@ import torch
 from torch.func import grad, jacfwd, vmap
 
 from belief_planning_tpu_torch.models import safety
-from belief_planning_tpu_torch.models.dynamics import dubins
+from belief_planning_tpu_torch.models.dynamics import dubins, quad_kinematics
 from belief_planning_tpu_torch.models.policies import PolicySet
 from belief_planning_tpu_torch.ops.linearize import linearize_dynamics
 from belief_planning_tpu_torch.ops.rollout import rollout_policy
@@ -112,6 +112,12 @@ def _branch_prob_softsat(h, s1):
     return e / torch.sum(e, dim=-1, keepdim=True)
 
 
+def _branch_prob_plain(h, s1):
+    """p = normalize(exp(s1·h)) over the last axis (the quadruped's, no softsat)."""
+    e = torch.exp(s1 * (h - torch.amax(h, dim=-1, keepdim=True)))
+    return e / torch.sum(e, dim=-1, keepdim=True)
+
+
 def highway_model(cons, pset: PolicySet, N: int, dt: float, N_lane: int = 3) -> PredictiveModel:
     """Highway overtake model. ``N_lane=3`` is the reference's default even in
     the 4-lane demo, kept for parity. Trajectory safety blends vehicle
@@ -152,4 +158,21 @@ def merge_model(cons, pset: PolicySet, N: int, dt: float) -> PredictiveModel:
         dyn=dubins, n=4, d=2, N=N, dt=dt, policy_fns=pset.fns,
         bf_traj=bf_traj, pair_h=pair_h,
         prob_from_h=partial(_branch_prob_softsat, s1=cons.s1),
+    )
+
+
+def quadruped_model(cons, pset: PolicySet, N: int, dt: float) -> PredictiveModel:
+    """Quadruped model: the 1-norm center-distance margin (the MPC path's),
+    soft-minned (γ=5) over the horizon for trajectory safety, and branch
+    probabilities without softsat."""
+    def pair_h(x, z):
+        return safety.robot_col(x, z, cons.L1, cons.W1, cons.L2, cons.W2, cons.col_tol, ord=1)
+
+    def bf_traj(obs_traj, ego_traj):
+        return softmin(pair_h(obs_traj, ego_traj), 5.0, axis=-1)
+
+    return PredictiveModel(
+        dyn=quad_kinematics, n=3, d=3, N=N, dt=dt, policy_fns=pset.fns,
+        bf_traj=bf_traj, pair_h=pair_h,
+        prob_from_h=partial(_branch_prob_plain, s1=cons.s1),
     )

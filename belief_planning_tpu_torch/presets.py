@@ -25,3 +25,21 @@ def init_branch_mpc(n, d, N, NB, xRef, am, rm, N_lane, W) -> BranchMPCParams:
         n=n, d=d, N=N, NB=NB, Q=Q, R=R, Fx=Fx, bx=bx, Fu=Fu, bu=bu,
         xRef=np.asarray(xRef, float), slacks=True, Qslack=Qslack, timeVarying=True,
     )
+
+
+def init_quad_branch_mpc(n, d, N, NB, xRef, vxm, vym, rm) -> BranchMPCParams:
+    """Quadruped branch-MPC parameters (reference ``Init_MPC.py:74-94``): no
+    state rows (``Fx`` of shape (0, n)), the asymmetric forward-velocity
+    bound vx ∈ [0, vxm] and the rate cost ``dR = [0.9, 5, 1]``."""
+    Fx = np.empty((0, n))
+    bx = np.empty((0,))
+    Fu = np.kron(np.eye(3), np.array([1., -1.])).T
+    bu = np.array([vxm, 0., vym, vym, rm, rm])
+    Q = np.diag([1., 1., 1.])
+    R = np.diag([1., 100., 1.])
+    dR = np.array([0.9, 5., 1.])
+    Qslack = np.array([0., 300.])
+    return BranchMPCParams(
+        n=n, d=d, N=N, NB=NB, Q=Q, R=R, dR=dR, Fx=Fx, bx=bx, Fu=Fu, bu=bu,
+        xRef=np.asarray(xRef, float), slacks=True, Qslack=Qslack, timeVarying=True,
+    )

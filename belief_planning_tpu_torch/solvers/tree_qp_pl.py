@@ -28,6 +28,7 @@ The loop over iterations and the best-iterate tracking stay in Python
 from __future__ import annotations
 
 import ctypes
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, List, NamedTuple
@@ -504,8 +505,12 @@ CARRY_ORDER = ["x", "u", "s", "sl1", "lam1", "sl2", "lam2", "sl3", "lam3"]
 CARRY_FIELDS = len(CARRY_ORDER)
 
 KERNEL_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "tree_qp_ipm_iter.cu"
-# the kernel's instantiated sizes: n, d, state rows (nFx), input rows (nFu)
-KERNEL_DIMS = (4, 2, 4, 4)
+# The kernel's instantiations, one library each, as (n, d, state rows nFx,
+# input rows nFu): the highway overtake; the quadruped as the solve runs it,
+# with its empty Fx padded to one inert row (setup_ipm, as the reference's
+# fused solve does); the quadruped's own rows, no state row, for the
+# iteration called on them directly. CUDA tensors of any other dims raise.
+KERNEL_DIMS = ((4, 2, 4, 4), (3, 3, 1, 6), (3, 3, 0, 6))
 PLAN_KEYS = ("scratch_elems", "blocks", "trees_per_block", "blocks_per_sm", "sms",
              "smem_bytes")
 
@@ -548,34 +553,66 @@ def kernel_plan(lib, ints, B: int, dtype, device_index: int) -> dict:
     return dict(zip(PLAN_KEYS, out))
 
 
+def dims_defines(dims):
+    """The compiler flags that instantiate the kernel source for ``dims``."""
+    return [f"-DBP_QP_{k}={v}" for k, v in zip(("N", "D", "NFX", "NFU"), dims)]
+
+
+def kernel_dims(ints):
+    """The (n, d, nFx, nFu) of a kernel's integer arguments."""
+    return (ints[0], ints[1], ints[4], ints[5])
+
+
 class FusedIterationKernel:
     """Wrapper of ``csrc/tree_qp_ipm_iter.cu`` (replaces the reference's
     ``tree_qp_pl._make_pallas_iteration``, and with :meth:`launch_phase` the
     phase kernels of its profile, ``scripts/profile_ipm_kernel.py``), or of
-    another source with its C interface. ``launches`` counts the main
-    kernel's launches (the full iteration, the profile's phase 2 included)
-    and ``phase_launches`` those of phase kernels 0 and 1, and nothing else;
-    ``build_log`` / ``build_seconds`` are what nvcc printed and took when
-    this process built the library."""
+    another source with its C interface, built once for each of ``dims``
+    (:func:`dims_defines`). ``launches`` counts the main
+    kernel's launches (the full iteration, the profile's phase 2 included),
+    ``dims_launches`` the same by instantiation, and ``phase_launches`` those
+    of phase kernels 0 and 1, and nothing else; ``builds`` maps each
+    instantiation this process built to what nvcc printed and the seconds
+    it took."""
 
-    def __init__(self, source: Path = KERNEL_SOURCE):
+    def __init__(self, source: Path = KERNEL_SOURCE, dims=KERNEL_DIMS):
         self.source = Path(source)
+        self.dims = tuple(tuple(dm) for dm in dims)
         self.launches = 0
         self.phase_launches = 0
-        self.build_log = ""
-        self.build_seconds = 0.0
-        self._lib = None
+        self.dims_launches = {dm: 0 for dm in self.dims}
+        self.builds = {}
+        self._libs = {}
 
-    def load(self):
-        """Build (nvcc, at first use) and load the kernel library."""
-        if self._lib is None:
-            path, self.build_log, self.build_seconds = build_shared_library(self.source)
-            self._lib = bind_kernel_library(ctypes.CDLL(str(path)))
-        return self._lib
+    @property
+    def build_log(self) -> str:
+        return "".join(log for log, _ in self.builds.values())
+
+    @property
+    def build_seconds(self) -> float:
+        return max((sec for _, sec in self.builds.values()), default=0.0)
+
+    def load(self, dims=None):
+        """Build (nvcc, at first use) and load the library of one
+        instantiation (default: the first of ``dims``)."""
+        dims = self.dims[0] if dims is None else tuple(dims)
+        if dims not in self.dims:
+            raise ValueError(f"tree_qp_ipm_iter: kernel is built for (n, d, nFx, nFu) in "
+                             f"{self.dims}, got {dims}")
+        if dims not in self._libs:
+            path, log, seconds = build_shared_library(self.source, dims_defines(dims))
+            self.builds[dims] = (log, seconds)
+            self._libs[dims] = bind_kernel_library(ctypes.CDLL(str(path)))
+        return self._libs[dims]
+
+    def load_all(self):
+        """Build every instantiation, one nvcc each, all at once."""
+        with ThreadPoolExecutor(len(self.dims)) as ex:
+            list(ex.map(self.load, self.dims))
 
     def plan(self, ints, B: int, dtype, device_index: int) -> dict:
         """The launch shape of ``B`` trees (see :func:`kernel_plan`)."""
-        return kernel_plan(self.load(), ints, B, dtype, device_index)
+        return kernel_plan(self.load(kernel_dims(ints)), ints, B, dtype, device_index)
 
     def launch(self, ints, dbl, consts, carry, scratch):
         """Launch one iteration on the current stream; returns the new carry
@@ -583,18 +620,20 @@ class FusedIterationKernel:
         x_c = carry[0]
         outs = [torch.empty_like(c) for c in carry]
         gap = torch.empty((1, x_c.shape[-1]), dtype=x_c.dtype, device=x_c.device)
-        lib = self.load()
+        dims = kernel_dims(ints)
+        lib = self.load(dims)
         fn = lib.bp_tree_qp_iter_f64 if x_c.dtype == torch.float64 else lib.bp_tree_qp_iter_f32
         self._call(fn, (), "tree_qp_ipm_iter", ints, dbl,
                    [*consts, *carry, *outs, gap, scratch], x_c)
         self.launches += 1
+        self.dims_launches[dims] += 1
         return (*outs, gap)
 
     def launch_phase(self, phase, ints, dbl, consts, carry, scratch):
         """Launch phase kernel 0 or 1 on the current stream; returns t0 (1, B)."""
         x_c = carry[0]
         t0 = torch.empty((1, x_c.shape[-1]), dtype=x_c.dtype, device=x_c.device)
-        lib = self.load()
+        lib = self.load(kernel_dims(ints))
         fn = lib.bp_tree_qp_phase_f64 if x_c.dtype == torch.float64 else lib.bp_tree_qp_phase_f32
         # the phase kernels write t0 alone: null carry outputs
         ptrs = [t.data_ptr() for t in (*consts, *carry)] + [0] * len(carry) \
@@ -702,9 +741,9 @@ def _kernel_step(plan, cfg, nFx, nFu, mtot, phase):
             return iterate(*args)
         if x_c.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"tree_qp_ipm_iter: dtype {x_c.dtype} not supported")
-        if (n, d, nFx, nFu) != KERNEL_DIMS:
-            raise ValueError(f"tree_qp_ipm_iter: kernel is built for (n, d, nFx, nFu) = "
-                             f"{KERNEL_DIMS}, got {(n, d, nFx, nFu)}")
+        if (n, d, nFx, nFu) not in KERNEL.dims:
+            raise ValueError(f"tree_qp_ipm_iter: kernel is built for (n, d, nFx, nFu) in "
+                             f"{KERNEL.dims}, got {(n, d, nFx, nFu)}")
         Z = x_c.shape[-1]
         check(args, x_c.dtype, x_c.device, Z)
         key = (Z, x_c.dtype, x_c.device)

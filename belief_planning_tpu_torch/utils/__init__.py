@@ -1,3 +1,3 @@
-from belief_planning_tpu_torch.utils.config import BranchConstants, BranchMPCParams
+from belief_planning_tpu_torch.utils.config import BranchConstants, BranchMPCParams, QuadConstants
 
-__all__ = ["BranchConstants", "BranchMPCParams"]
+__all__ = ["BranchConstants", "BranchMPCParams", "QuadConstants"]

@@ -1,7 +1,8 @@
 """Configuration dataclasses (numpy), copied from the reference package's
 ``utils/config.py``.
 
-``BranchConstants`` holds the static scenario constants; ``BranchMPCParams``
+``BranchConstants`` and ``QuadConstants`` hold the static scenario constants
+of the highway and the quadruped; ``BranchMPCParams``
 the controller's weights and constraint polytopes. Reference behaviours kept:
 ``Qf`` defaults to ``Q``; ``Qslack = [quadratic, linear]`` as the reference uses
 it; a ``bx`` wrapped in a 1-tuple is unwrapped.
@@ -36,6 +37,26 @@ class BranchConstants:
     W: float = 2.5           # vehicle width
     col_alpha: float = 5.0   # collision softmax sharpness
     Kpsi: float = 0.1        # heading P-gain for maintain/brake policies
+
+
+@dataclass(frozen=True)
+class QuadConstants:
+    """Quadruped constants (the reference's ``Quad_constants``)."""
+
+    s1: float = 2.0
+    s2: float = 3.0
+    c2: float = 0.5
+    alpha: float = 1.0
+    R: float = 1.2
+    vxm: float = 0.2         # max body-frame forward velocity
+    vym: float = 0.1         # max body-frame lateral velocity
+    rm: float = 0.5          # max yaw rate
+    W1: float = 0.3          # ego body width
+    L1: float = 0.5          # ego body length
+    W2: float = 0.6          # obstacle body width
+    L2: float = 1.0          # obstacle body length
+    col_tol: float = 0.2     # collision margin tolerance
+    col_alpha: float = 5.0
 
 
 def _as_array(x) -> Optional[np.ndarray]:

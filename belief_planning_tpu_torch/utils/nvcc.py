@@ -33,20 +33,23 @@ def find_nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
-def build_shared_library(source: Path):
+def build_shared_library(source: Path, extra_flags=()):
     """Compile ``source`` into ``_build/<stem>-<hash>.so`` unless it exists.
-    Returns ``(path, log, seconds)``: the compiler's output (ptxas register
-    and spill report) and the build's wall seconds, ``("", 0.0)`` when the
-    library was already built. Raises on any compiler error."""
+    ``extra_flags`` (e.g. ``-D`` defines choosing an instantiation) are
+    passed to nvcc and enter the hash. Returns ``(path, log, seconds)``: the
+    compiler's output (ptxas register and spill report) and the build's wall
+    seconds, ``("", 0.0)`` when the library was already built. Raises on any
+    compiler error."""
     source = Path(source)
     text = source.read_bytes()
-    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = [*NVCC_FLAGS, *extra_flags]
+    key = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{source.stem}-{key}.so"
     if out.exists():
         return out, "", 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [find_nvcc(), *flags, "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

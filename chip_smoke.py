@@ -8,8 +8,10 @@ Run from the repository root with no arguments:
 Phases, one JSON line each:
 
 0. the card's name and power limit (``nvidia-smi``);
-1. build: nvcc compiles ``csrc/tree_qp_ipm_iter.cu`` (timed, with ptxas's
-   registers, stack frame and spills for each kernel entry);
+1. build: nvcc compiles ``csrc/tree_qp_ipm_iter.cu`` once for each of its
+   instantiations (n, d, nFx, nFu) = (4, 2, 4, 4), (3, 3, 1, 6), (3, 3, 0,
+   6) (timed, with ptxas's registers, stack frame and spills for each
+   kernel entry);
 2. the kernel against its plain PyTorch version, both on the card, on real
    QP data from the port's tree build and cost assembly (N=8, NB=2): one
    iteration in f64 at B=256 and at B=32768 (bar 1e-10 of each field's
@@ -55,14 +57,15 @@ Phases, one JSON line each:
    on the k = 8 rows at a view that is not 16-byte aligned, each launch's
    path checked); ``soc_kernel_time`` (32768 × 97 rows, k = 8, f32 and
    f64, held to the same bars; GB/s and share of the bound);
-   ``soc_kernel_on_admm_rows`` (every projection of one 400-iteration f64
-   solve at B=32768 also run by the plain version, and on the rows cast to
-   f32, at the same bars); ``admm_main_path`` (a batched 400-iteration
-   solve of the CVaR overtake at B=32768 in f64, where the reference
-   converges: solve ms, prim_res, J, K3's share of device time, exactly
-   iters + 2 launches, all on the team path);
+   ``soc_kernel_on_admm_rows`` (every projection of the first 30
+   iterations of the f64 solve at B=32768 also run by the plain version,
+   and on the rows cast to f32, at the same bars); ``admm_main_path`` (a
+   batched 400-iteration solve of the CVaR overtake at B=32768 in f64,
+   where the reference converges: solve ms, prim_res, J, exactly iters + 2
+   launches, all on the team path; K3's share of device time over a
+   profiled 100-iteration solve);
    ``admm_vs_cpu`` (the same in f64 at B=64, card against CPU: |Δu| held
-   at 1e-7 after 30 and after 400 iterations, |Δx| reported);
+   at 1e-7 after 30 and after 100 iterations, |Δx| reported);
 7. the K1 profile (the phase kernels of ``csrc/tree_qp_ipm_iter.cu``):
    ``k1_phases_vs_plain`` (phases 0 and 1 in f64 at B=1024, 1e-10; on
    the profile's f32 inputs at B=2048 and B=32768 with the f32 accuracy
@@ -82,12 +85,30 @@ Phases, one JSON line each:
    timed warm step and a profiled one); ``qp_ipm_pin`` (K1 in f64 at
    B=1024 against the per-tree step over two warm-carried steps at the main
    path's IPM-8 with 2 correctors, u < 1e-7, x < 1e-6); ``cvar_ipm_main_path`` (``make_cvar_mpc_step``, IPM-80, f32,
-   B=32768, both CVaR configurations: solves/s, gap and J p50; the
+   B=8192, both CVaR configurations: solves/s, gap and J p50; the
    overtake profiled over 8 iterations; one cold step each); ``cvar_ipm_pin`` (K2 in f64
    against ``cvar_ipm_solve`` at B=64, IPM-60: first 10 gaps rtol 1e-8,
    root u < 2e-2);
-9. the ``kernels`` line (all five kernels), the ``nvidia-smi`` line, and
-   the result line.
+9. slice 8, the quadruped on K1 and the closed-loop merge episode on K2
+   (``scripts/bench_configs.py:193-222``: N=25, NB=2, 151 stages, the rate
+   cost dR, IPM-8 with 2 correctors): ``quad_kernel_vs_plain`` (K1 at
+   (3, 3, 1, 6), the solve's rows with one inert padded row, and at
+   (3, 3, 0, 6), the quadruped's own rows: f64 at B=256 at iterations 1
+   and 5, 1e-10; f32 at B=8192 and 256 with the accuracy bar);
+   ``quad_k1_phases_vs_plain`` (phases 0 and 1 at both dims, f64, 1e-10);
+   ``quad_kernel_time`` (ms a launch at B=8192 and 256 beside the plain
+   version's and the bound, and the launch plan); ``quad_main_path``
+   (``make_branch_mpc_batched_step`` on the quadruped, f32, B=8192:
+   solves/s over 5 warm steps, every K1 launch at (3, 3, 1, 6), inputs
+   inside their bounds on feasible lanes; p50 at B=256 beside the
+   quadruped's 200 ms control period; a profiled step at each size);
+   ``quad_main_path_vs_cpu`` (f64, B=64, two steps, u < 1e-7, x < 1e-6);
+   ``merge_episode_vs_cpu`` (``envs/batched_merge.make_batched_merge_fused``
+   in f64 at B=8, IPM-8, three steps, card against CPU: u, x, z < 1e-7,
+   the same merged flags) and ``merge_episode`` (world-steps/s at
+   B=32768, IPM-24, f32, over 10 warm steps, 24 K2 launches a step);
+10. the ``kernels`` line (all five kernels; K1's with an entry for each
+    instantiation), the ``nvidia-smi`` line, and the result line.
 
 Every kernel source is built at the start, in parallel (one nvcc each).
 
@@ -128,7 +149,14 @@ N, NB, n, d = 8, 2, 4, 2
 BENCH_B = 32768
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also gets ``t_s``, the script's seconds
+    so far when it was printed."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -234,6 +262,48 @@ def iteration_flops(plan, nFx, nFu, gondzio, lanes):
                  + gondzio * 10 * entries + gondzio * 2 * (nx + nu + 2 * entries)
                  + 2 * (nx + nu + 2 * entries))
     return per_stage * U * lanes
+
+
+def hold_iteration(step, plain, consts, carry, line, card):
+    """One launch of K1 (``step``) against its plain version on the same
+    inputs: in f64 every field within F64_TOL of its magnitude; in f32 as
+    accurate as the plain version in f32, both against the plain version in
+    f64 on the upcast inputs. Emits ``line`` with the errors, raises on a
+    miss; returns the largest |kernel − plain|."""
+    from belief_planning_tpu_torch.solvers.tree_qp_pl import CARRY_ORDER
+
+    names = CARRY_ORDER + ["gap"]
+    B = carry[0].shape[-1]
+    got = step(*consts, *carry)
+    torch.cuda.synchronize()
+    ref = plain(*consts, *carry)
+    errs = scaled_err(got, ref, names)
+    worst = max(errs, key=lambda k: errs[k][0])
+    max_abs = max(e[1] for e in errs.values())
+    line = {**line, "worst_field": worst, "worst_scaled": errs[worst][0], "max_abs_err": max_abs}
+    if carry[0].dtype == torch.float64:
+        emit({**line, "tol_scaled": F64_TOL, **card})
+        if errs[worst][0] > F64_TOL:
+            raise AssertionError(f"kernel disagrees with its plain version: {worst} "
+                                 f"{errs[worst][0]:.3e} > {F64_TOL:.0e} ({line})")
+        return max_abs
+    up = lambda ts: [t.double() for t in ts]
+    ref64 = plain(*up(consts), *up(carry))
+    acc = {}
+    for nm, g, r, r64 in zip(names, got, ref, ref64):
+        e_k = (g.double() - r64).abs().max().item()
+        e_p = (r.double() - r64).abs().max().item()
+        acc[nm] = (e_k, e_p, F32_ERR_RATIO * e_p + F32_FLOOR * r64.abs().max().item())
+    bad = [nm for nm, (e_k, _, bar) in acc.items() if e_k > bar]
+    lane_rel = torch.stack([((g - r).abs() / r.abs().amax()).reshape(-1, B).amax(0)
+                            for g, r in zip(got, ref)]).amax(0)
+    emit({**line, "err_vs_f64": {nm: {"kernel": v[0], "plain": v[1], "bar": v[2]}
+                                  for nm, v in acc.items()},
+          "lanes_over_1e-4": int((lane_rel > 1e-4).sum()),
+          "lanes_over_1e-5": int((lane_rel > 1e-5).sum()), **card})
+    if bad:
+        raise AssertionError(f"f32 kernel less accurate than the plain version in {bad} ({line})")
+    return max_abs
 
 
 # ---- the CVaR slice ----------------------------------------------------------
@@ -702,6 +772,11 @@ def run_cvar_phases(dev, card, K2):
 SOC_K = 2 + n + d          # cone row length of the CVaR ADMM: (1+t, x rows, u rows, 1−t)
 ADMM_ITERS = 400
 ADMM_EARLY_ITERS = 30
+# the shorter ADMM solves that keep the script inside its time: the projection
+# check on the main path's rows and the profile run 30 and 100 iterations of
+# the 400-iteration solve, the card-vs-CPU check 30 and 100
+ADMM_TAP_ITERS = 30
+ADMM_PROFILE_ITERS = 100
 
 
 def soc_test_rows(rows, dtype, dev, seed=0):
@@ -828,10 +903,11 @@ def run_admm_phases(dev, card, K3):
         del v
 
     # ---- the kernel on the cone rows the main path projects ---------------------
-    # The same solve as the main path's, with every projection of its z-update
-    # also run by the plain version (f64) and by the kernel and the plain
-    # version on the rows cast to f32; not counted as the main path's launches.
-    cfg = admm_cfg()
+    # The main path's solve, its first ADMM_TAP_ITERS iterations, with every
+    # projection of its z-update also run by the plain version (f64) and by
+    # the kernel and the plain version on the rows cast to f32; not counted as
+    # the main path's launches.
+    cfg = admm_cfg(ADMM_TAP_ITERS)
     topo, args = admm_problem(dev, BENCH_B, f64)
     worst = {f64: 0.0, f32: 0.0}
     calls = []
@@ -859,6 +935,8 @@ def run_admm_phases(dev, card, K3):
     if len(calls) != cfg.iters + 2 or calls[0] != BENCH_B * topo.totalu:
         raise AssertionError(f"ADMM solve: {len(calls)} projections of {calls[0]} rows")
 
+    cfg = admm_cfg()
+
     # ---- the main path: a batched cvar_solve at B=32768, f64 ------------------
     # f64, not f32: the Woodbury correction cancels terms ~1e6 times larger than
     # its result, and in f32 the ADMM diverges to NaN on this problem in the
@@ -875,7 +953,8 @@ def run_admm_phases(dev, card, K3):
                                                     aux["J"]))
     shapes_ok = (tuple(u.shape) == (BENCH_B, topo.totalu, d)
                  and tuple(x.shape) == (BENCH_B, topo.totalx, n))
-    prof = profile_step(lambda: cvar_solve(*args, cfg=cfg)[1].cpu(), kernels=("proj_soc",))
+    prof = profile_step(lambda: cvar_solve(*args, cfg=admm_cfg(ADMM_PROFILE_ITERS))[1].cpu(),
+                        kernels=("proj_soc",))
     k3_share = prof["kernel_device_ms"]["proj_soc"] / max(prof["device_busy_ms"], 1e-30)
     emit({"phase": "admm_main_path", "config": "cvar_overtake", "B": BENCH_B, "N": 8, "NB": 2,
           "m": 3, "ralpha": 0.9, "dtype": "float64", "admm_iters": cfg.iters,
@@ -884,6 +963,7 @@ def run_admm_phases(dev, card, K3):
           "finite": finite, "shapes_ok": shapes_ok,
           "prim_res_p50": float(aux["prim_res"].median()),
           "prim_res_max": float(aux["prim_res"].max()), "J_p50": float(aux["J"].median()),
+          "profile_admm_iters": ADMM_PROFILE_ITERS,
           "k3_device_ms": prof["kernel_device_ms"]["proj_soc"], "k3_share_of_device": k3_share,
           "profile": {k: prof[k] for k in ("wall_ms_profiled", "device_busy_ms",
                                            "device_idle_share", "device_ops", "top_device_ms")},
@@ -897,14 +977,14 @@ def run_admm_phases(dev, card, K3):
     torch.cuda.empty_cache()
 
     # ---- the same solve in f64 on the card and on the CPU ---------------------
-    # Held after 30 and after 400 iterations. The bar is as wide as the
+    # Held after 30 and after 100 iterations. The bar is as wide as the
     # reference's own reproducibility: the JAX package's jitted and eager runs
     # of this solve part by 2.7e-8 in u after 30 iterations and 1.0e-7 after
     # 400 on these states (scripts/torch_port_admm_chaos.py overtake 64).
     cpu = torch.device("cpu")
     _, args_cpu = admm_problem(cpu, 64, f64)
     res = {}
-    for iters in (ADMM_EARLY_ITERS, ADMM_ITERS):
+    for iters in (ADMM_EARLY_ITERS, ADMM_PROFILE_ITERS):
         c = admm_cfg(iters)
         on_card = cvar_solve(*args_cpu, cfg=c)          # moves the CPU-built inputs to the card
         on_cpu = cvar_solve(*args_cpu, cfg=c, device="cpu")
@@ -1060,6 +1140,9 @@ def run_k1_phases(dev, card, K, k1_ms):
 # iterates of the overtake part by up to 1.4e-2 at 256 lanes (CPU, f64).
 QP_PIN_B = 1024
 CVAR_PIN_B = 64
+# the per-tree CVaR steps at a quarter of the main paths' batch, to keep the
+# script inside its time (at B=32768 a cold step took 22-31 s a configuration)
+PER_TREE_CVAR_B = 8192
 
 
 def run_shared_rows_phases(dev, card, K5):
@@ -1215,17 +1298,17 @@ def run_per_tree_phases(dev, card, K, K2):
         model_c, params_c, pset_c, _, ralpha, use_S = cvar_config(name)
         topo_c, _, init_c, step_c = make_cvar_mpc_step(model_c, params_c, ralpha, ipm=cfg,
                                                        use_S=use_S)
-        xs, zs, xRefs, S, bx = cvar_states(name, BENCH_B, dev, f32)
+        xs, zs, xRefs, S, bx = cvar_states(name, PER_TREE_CVAR_B, dev, f32)
         kw = {} if S is None else dict(S=S, bx=bx)
-        # one cold step, timed: at 20-30 s of about half a million small device
-        # ops, a warm-up step would change nothing but the script's time
-        c, res, sec = timed_step(lambda: step_c(init_c(BENCH_B, f32), xs, zs, xRefs,
+        # one cold step, timed: at many seconds of about half a million small
+        # device ops, a warm-up step would change nothing but the script's time
+        c, res, sec = timed_step(lambda: step_c(init_c(PER_TREE_CVAR_B, f32), xs, zs, xRefs,
                                                 pset_c.params, **kw))
         finite = all(bool(t.isfinite().all()) for t in (res.xPred, res.uPred, res.gap, res.J))
-        line = {"phase": "cvar_ipm_main_path", "config": name, "B": BENCH_B,
+        line = {"phase": "cvar_ipm_main_path", "config": name, "B": PER_TREE_CVAR_B,
                 "N": params_c.N, "NB": params_c.NB, "m": model_c.m, "ipm_iters": cfg.iters,
                 "dtype": "float32",
-                "step_ms": sec * 1e3, "solves_per_s": BENCH_B / sec, "finite": finite,
+                "step_ms": sec * 1e3, "solves_per_s": PER_TREE_CVAR_B / sec, "finite": finite,
                 "gap_p50": float(res.gap.median()), "gap_max": float(res.gap.max()),
                 "J_p50": float(res.J.median())}
         if name == "cvar_overtake":
@@ -1235,7 +1318,7 @@ def run_per_tree_phases(dev, card, K, K2):
             line["profile_8_iters"] = profile_step(
                 lambda: step_p(c, xs, zs, xRefs, pset_c.params, **kw)[1].uPred.cpu())
         emit({**line, **card})
-        if not finite or tuple(res.uPred.shape) != (BENCH_B, topo_c.totalu, d):
+        if not finite or tuple(res.uPred.shape) != (PER_TREE_CVAR_B, topo_c.totalu, d):
             raise AssertionError(f"per-tree CVaR main path ({name}): non-finite outputs or "
                                  "wrong shape")
         del c, res
@@ -1281,6 +1364,278 @@ def run_per_tree_phases(dev, card, K, K2):
             raise AssertionError(f"CVaR pin ({name}): first 10 gaps ok={ok10}, root |du| {du0}")
 
 
+# ---- slice 8: the quadruped on K1 and the merge episode on K2 -----------------
+
+QUAD_N = 25
+QUAD_B = 8192
+QUAD_DIMS = ((3, 3, 1, 6), (3, 3, 0, 6))   # the solve's (one inert row), the rows alone
+MERGE_EPISODE_B = 32768
+MERGE_EPISODE_STEPS = 10
+
+
+def quad_config():
+    """The quadruped's reference configuration (``scripts/bench_configs.py:
+    193-222``): ``(pset, model, params)``."""
+    from belief_planning_tpu_torch.models.policies import quadruped_policy_set
+    from belief_planning_tpu_torch.models.predictive import quadruped_model
+    from belief_planning_tpu_torch.presets import init_quad_branch_mpc
+    from belief_planning_tpu_torch.utils.config import QuadConstants
+
+    cons = QuadConstants(s1=2, s2=3, c2=0.5, alpha=1, R=1.2, vxm=0.2, vym=0.1, rm=0.5,
+                         L1=0.5, W1=0.3, L2=1.0, W2=0.6, col_tol=0.2, col_alpha=5)
+    pset = quadruped_policy_set(0.2)
+    model = quadruped_model(cons, pset, N=QUAD_N, dt=0.2)
+    params = init_quad_branch_mpc(3, 3, QUAD_N, 2, np.array([5.0, 5.0, 0.0]), 0.2, 0.1, 0.5)
+    return pset, model, params
+
+
+def quad_states(B, seed=0):
+    """States drawn as the reference's quadruped bench draws them."""
+    rng = np.random.default_rng(seed)
+    xs = np.array([0.0, 1.8, 0.0]) + rng.normal(0, 0.3, (B, 3))
+    zs = np.array([2.5, 2.5, -np.pi / 2]) + rng.normal(0, 0.3, (B, 3))
+    return xs, zs, np.tile(np.array([5.0, 5.0, 0.0]), (B, 1))
+
+
+def quad_case(dev, B, dtype, cfg, nFx):
+    """K1's inputs on the quadruped (tree build and cost in f64 on the card,
+    cast to ``dtype``): ``nFx`` 1 is the solve's setup, whose empty Fx gets
+    one inert row; 0 takes that row out again. Returns ``(plan, setup, step,
+    plain, mtot)``, step and plain being the kernel's and the plain version's
+    iteration at those rows."""
+    from belief_planning_tpu_torch.models.policies import cast_params
+    from belief_planning_tpu_torch.solvers import tree_qp_pl
+    from belief_planning_tpu_torch.solvers.layout import _to_bl, cost_to_bl
+    from belief_planning_tpu_torch.solvers.tree_qp import assemble_stage_cost, build_stage_plan
+    from belief_planning_tpu_torch.tree.engine import build_tree
+    from belief_planning_tpu_torch.tree.topology import build_topology
+
+    pset, model, params = quad_config()
+    topo = build_topology(QUAD_N, 2, model.m, 3, 3)
+    plan = build_stage_plan(topo)
+    f64 = torch.float64
+    t = lambda a: torch.as_tensor(a, dtype=f64, device=dev)
+    xs, zs, xRefs = quad_states(B)
+    ts = build_tree(model, topo, t(xs), t(zs), torch.zeros(B, topo.totalu, 3, dtype=f64, device=dev),
+                    cast_params(pset.params, f64, dev))
+    cost = assemble_stage_cost(topo, ts, params.Q, params.R, params.Qf, params.dR,
+                               params.Qslack, t(xRefs), torch.zeros(B, 3, dtype=f64, device=dev))
+    cast = lambda a: _to_bl(a.to(dtype))
+    su = tree_qp_pl.setup_ipm(plan, cost_to_bl(type(cost)(*(c.to(dtype) for c in cost))),
+                              cast(ts.A), cast(ts.Bm), cast(ts.dh), cast(ts.h0), params.Fx,
+                              params.bx, params.Fu, params.bu, cast(ts.x_lin), cast(ts.u_lin),
+                              cfg)
+    if nFx == 0:
+        rows = {"s", "sl1", "lam1", "sl3", "lam3", "b1"}
+        one = lambda nm, c: c[:, :1].contiguous() if nm in rows else (c[:0] if nm == "Fx" else c)
+        su = su._replace(
+            const_args=[one(nm, c) for nm, c in zip(tree_qp_pl.CONST_ORDER, su.const_args)],
+            carry0=tuple(one(nm, c) for nm, c in zip(tree_qp_pl.CARRY_ORDER, su.carry0)))
+    mtot = float(topo.totalu * (2 * (nFx + 1) + 6))
+    return (plan, su, tree_qp_pl.fused_iteration(plan, cfg, nFx, 6, mtot),
+            tree_qp_pl.make_iteration(plan, cfg, nFx, 6, mtot), mtot)
+
+
+def run_quadruped_phases(dev, card, K):
+    """The quadruped slice: K1 at the quadruped's dims against its plain
+    version (f64 at B=256, two carries; f32 at B=8192 and 256) and timed,
+    the phase kernels (K4) at those dims, then the quadruped main path.
+    Returns K1's entries for those instantiations."""
+    from belief_planning_tpu_torch.controllers.branch_mpc import make_branch_mpc_batched_step
+    from belief_planning_tpu_torch.solvers import tree_qp_pl
+    from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
+
+    f32, f64 = torch.float32, torch.float64
+    cfg = QPIPMConfig(iters=8, gondzio=2)
+    entries = []
+    for dims in QUAD_DIMS:
+        nFx = dims[2]
+        base = {"phase": "quad_kernel_vs_plain", "dims": list(dims), "N": QUAD_N}
+        plan, su, step, plain, mtot = quad_case(dev, 256, f64, cfg, nFx)
+        carry = su.carry0
+        for it in (1, 5):
+            hold_iteration(step, plain, su.const_args, carry,
+                           {**base, "B": 256, "dtype": "float64", "iteration": it}, card)
+            for _ in range(4):
+                carry = plain(*su.const_args, *carry)[:tree_qp_pl.CARRY_FIELDS]
+        for phase in (0, 1):
+            got = tree_qp_pl.phase_step(plan, cfg, nFx, 6, mtot, phase)(*su.const_args, *su.carry0)
+            ref = tree_qp_pl.make_phase(plan, cfg, nFx, 6, mtot, phase)(*su.const_args, *su.carry0)
+            err = ((got - ref).abs().max() / ref.abs().max()).item()
+            emit({"phase": "quad_k1_phases_vs_plain", "dims": list(dims), "k1_phase": phase,
+                  "B": 256, "dtype": "float64", "scaled_err": err, "tol_scaled": F64_TOL, **card})
+            if not err <= F64_TOL:
+                raise AssertionError(f"quadruped K1 phase {phase} {dims}: {err:.3e}")
+        timing = {}
+        for B, reps, plain_reps in ((QUAD_B, 10, 2), (256, 20, 3)):
+            plan, su, step, plain, mtot = quad_case(dev, B, f32, cfg, nFx)
+            err = hold_iteration(step, plain, su.const_args, su.carry0,
+                                 {**base, "B": B, "dtype": "float32", "iteration": 1}, card)
+            ms = cuda_ms(lambda: step(*su.const_args, *su.carry0), reps=reps)
+            plain_ms = cuda_ms(lambda: plain(*su.const_args, *su.carry0), reps=plain_reps)
+            t_bytes = iteration_bytes(su) / H100_BYTES_PER_S * 1e3
+            t_ops = iteration_flops(plan, nFx, 6, cfg.gondzio, B) / H100_FLOPS["float32"] * 1e3
+            kplan = K.plan(tree_qp_pl.kernel_ints(plan, cfg, nFx, 6), B, f32, dev.index)
+            timing[B] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                             bound_by="bytes" if t_bytes >= t_ops else "operations",
+                             max_abs_err=err, bytes=iteration_bytes(su),
+                             flops=iteration_flops(plan, nFx, 6, cfg.gondzio, B),
+                             trees_per_block=kplan["trees_per_block"],
+                             blocks_per_sm=kplan["blocks_per_sm"], blocks=kplan["blocks"],
+                             smem_bytes_per_block=kplan["smem_bytes"],
+                             slot_bytes_per_tree=kplan["scratch_elems"] * 4
+                             // (kplan["blocks"] * kplan["trees_per_block"]))
+            del su
+        emit({"phase": "quad_kernel_time", "dims": list(dims), "N": QUAD_N,
+              "totalu": plan.topo.totalu, "dtype": "float32",
+              **{f"B{B}": v for B, v in timing.items()}, **card})
+        big = timing[QUAD_B]
+        entries.append({"dims": list(dims), "B": QUAD_B, "ms": big["ms"],
+                        "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+                        "bound_by": big["bound_by"], "max_abs_err": big["max_abs_err"],
+                        "ms_B256": timing[256]["ms"], "plain_ms_B256": timing[256]["plain_ms"],
+                        "bound_ms_B256": timing[256]["bound_ms"]})
+        torch.cuda.empty_cache()
+
+    # ---- the quadruped main path: f32, B=8192 and the B=256 p50 -------------------
+    pset, model, params = quad_config()
+    topo, init, step = make_branch_mpc_batched_step(model, params, "prox", ipm=cfg)
+
+    def drive(B, steps, dtype=f32, stepper=step, init_=init, device=dev):
+        xs, zs, xRefs = (torch.as_tensor(a, dtype=dtype, device=device) for a in quad_states(B))
+        carrys, res = stepper(init_(B, dtype), xs, zs, xRefs, pset.params)   # warm-up step
+        res.uPred.cpu()
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            _c, res = stepper(carrys, xs, zs, xRefs, pset.params)
+            res.uPred.cpu()
+            times.append(time.perf_counter() - t0)
+        return res, times, (carrys, xs, zs, xRefs)
+
+    steps = 5
+    K.launches = 0
+    K.dims_launches = {dm: 0 for dm in K.dims}
+    res, times, warm = drive(QUAD_B, steps)
+    launches = dict(K.dims_launches)
+    u, feas = res.uPred, res.feasible
+    finite = all(bool(t.isfinite().all()) for t in (res.xPred, res.uPred, res.slack, res.prim_res))
+    uf = u[feas] if bool(feas.any()) else u[:0]
+    worst = {"vx_min": uf[..., 0].min().item() if uf.numel() else 0.0,
+             "vx_max": uf[..., 0].max().item() if uf.numel() else 0.0,
+             "abs_vy_max": uf[..., 1].abs().max().item() if uf.numel() else 0.0,
+             "abs_w_max": uf[..., 2].abs().max().item() if uf.numel() else 0.0}
+    med = float(np.median(times))
+    _, times256, warm256 = drive(256, 10)
+    expected = cfg.iters * (steps + 1)
+    line = {"phase": "quad_main_path", "B": QUAD_B, "N": QUAD_N, "NB": 2, "totalu": topo.totalu,
+            "ipm_iters": cfg.iters, "gondzio": cfg.gondzio, "dtype": "float32",
+            "steps_timed": steps, "step_ms_median": med * 1e3,
+            "step_ms_all": [t * 1e3 for t in times], "solves_per_s": QUAD_B / med,
+            "p50_ms_B256": float(np.median(times256)) * 1e3, "control_period_ms": 200.0,
+            "launches_by_dims": {str(list(k)): v for k, v in launches.items()},
+            "launches_expected": expected, "finite": finite,
+            "feasible_share": feas.float().mean().item(), "feasible_inputs": worst,
+            "prim_res_max": res.prim_res.max().item(), **card}
+    for B, (carrys, xs, zs, xRefs) in ((QUAD_B, warm), (256, warm256)):
+        line[f"profile_B{B}"] = profile_step(
+            lambda: step(carrys, xs, zs, xRefs, pset.params)[1].uPred.cpu(), ("tree_qp_kernel",))
+    emit(line)
+    if not finite:
+        raise AssertionError("quadruped main path: non-finite outputs")
+    if launches[QUAD_DIMS[0]] != expected or sum(launches.values()) != expected:
+        raise AssertionError(f"quadruped main path: K1 launches {launches}, expected {expected} "
+                             f"at {QUAD_DIMS[0]}")
+    # the input bounds vx ∈ [0, 0.2], |vy| ≤ 0.1, |ω| ≤ 0.5 within feas_tol on feasible lanes
+    tol_b = 1e-3
+    if (worst["vx_min"] < -tol_b or worst["vx_max"] > 0.2 + tol_b
+            or worst["abs_vy_max"] > 0.1 + tol_b or worst["abs_w_max"] > 0.5 + tol_b):
+        raise AssertionError(f"quadruped main path: feasible lanes outside the bounds: {worst}")
+    if line["feasible_share"] < 0.5:
+        raise AssertionError(f"quadruped main path: feasible share {line['feasible_share']:.3f}")
+    entries[0]["launches"] = launches[QUAD_DIMS[0]]
+    entries[1]["launches"] = launches[QUAD_DIMS[1]]
+    entries[1]["path"] = "the iteration on the quadruped's own rows, called directly"
+    del res, warm, warm256
+    torch.cuda.empty_cache()
+
+    # ---- the f64 path on the card against the same steps on the CPU -----------------
+    _, cpu_init, cpu_step = make_branch_mpc_batched_step(model, params, "prox", ipm=cfg,
+                                                         device="cpu")
+    outs = {}
+    for where, (st_, in_, dv) in {"cuda": (step, init, dev),
+                                  "cpu": (cpu_step, cpu_init, torch.device("cpu"))}.items():
+        xs, zs, xRefs = (torch.as_tensor(a, dtype=f64, device=dv) for a in quad_states(64))
+        c = in_(64, f64)
+        seq = []
+        for _ in range(2):
+            c, r = st_(c, xs, zs, xRefs, pset.params)
+            seq.append((r.uPred.cpu(), r.xPred.cpu()))
+        outs[where] = seq
+    du = max((a[0] - b[0]).abs().max().item() for a, b in zip(outs["cuda"], outs["cpu"]))
+    dx = max((a[1] - b[1]).abs().max().item() for a, b in zip(outs["cuda"], outs["cpu"]))
+    emit({"phase": "quad_main_path_vs_cpu", "B": 64, "dtype": "float64", "steps": 2,
+          "max_abs_du": du, "max_abs_dx": dx, "tol_du": 1e-7, "tol_dx": 1e-6, **card})
+    if not (du < 1e-7 and dx < 1e-6):
+        raise AssertionError(f"quadruped f64 main path on the card vs CPU: |du| {du:.3e}, "
+                             f"|dx| {dx:.3e}")
+    return entries
+
+
+def run_merge_episode_phases(dev, card, K2):
+    """The closed-loop merge episode (``envs/batched_merge.make_batched_merge_fused``,
+    one batched CVaR step on K2 a world step): the card in f64 against the
+    CPU's plain version over 3 steps at B=8 (IPM-8: late CVaR iterates are
+    chaotic in the reference itself), then world-steps/s at B=32768, IPM-24,
+    f32, over 10 warm steps."""
+    from belief_planning_tpu_torch.envs.batched_merge import make_batched_merge_fused
+    from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig
+
+    f32, f64 = torch.float32, torch.float64
+    model, params, pset, cons, ralpha, _ = cvar_config("cvar_merge")
+    cfg8 = CVaRIPMConfig(iters=8, gondzio=2)
+    trajs = {}
+    for where in ("cuda", "cpu"):
+        _, init_w, episode = make_batched_merge_fused(cons, model, params, pset.params, ralpha,
+                                                      ipm=cfg8, dtype=f64,
+                                                      device=dev if where == "cuda" else "cpu")
+        _, traj = episode(init_w(8, seed=0), 3)
+        trajs[where] = {k: v.cpu() for k, v in traj.items()}
+    diff = {k: (trajs["cuda"][k].double() - trajs["cpu"][k].double()).abs().max().item()
+            for k in ("u", "x", "z", "gap")}
+    same_flags = torch.equal(trajs["cuda"]["merged"], trajs["cpu"]["merged"])
+    emit({"phase": "merge_episode_vs_cpu", "B": 8, "N": params.N, "steps": 3, "dtype": "float64",
+          "ipm_iters": cfg8.iters, "max_abs_diff": diff, "merged_equal": same_flags,
+          "tol_u": 1e-7, "tol_x": 1e-7, **card})
+    if not (diff["u"] < 1e-7 and diff["x"] < 1e-7 and diff["z"] < 1e-7 and same_flags):
+        raise AssertionError(f"merge episode, card vs CPU: {diff}, merged equal {same_flags}")
+
+    cfg = CVaRIPMConfig(iters=24, gondzio=2)
+    _, init_w, episode = make_batched_merge_fused(cons, model, params, pset.params, ralpha,
+                                                  ipm=cfg, dtype=f32)
+    worlds, _ = episode(init_w(MERGE_EPISODE_B, seed=0), 1)           # the cold first step
+    K2.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    worlds, traj = episode(worlds, MERGE_EPISODE_STEPS)
+    u = traj["u"].cpu()
+    sec = time.perf_counter() - t0
+    finite = bool(u.isfinite().all()) and bool(traj["x"].isfinite().all())
+    line = {"phase": "merge_episode", "B": MERGE_EPISODE_B, "N": params.N, "NB": params.NB,
+            "ipm_iters": cfg.iters, "gondzio": cfg.gondzio, "dtype": "float32",
+            "steps_timed": MERGE_EPISODE_STEPS, "seconds": sec,
+            "world_steps_per_s": MERGE_EPISODE_B * MERGE_EPISODE_STEPS / sec,
+            "step_ms": sec / MERGE_EPISODE_STEPS * 1e3, "k2_launches": K2.launches,
+            "launches_expected": cfg.iters * MERGE_EPISODE_STEPS, "finite": finite,
+            "merged_share": worlds.merged.float().mean().item(),
+            "collided_share": worlds.collided.float().mean().item(),
+            "gap_p50_last": float(traj["gap"][:, -1].median()), **card}
+    emit(line)
+    if not finite or K2.launches != cfg.iters * MERGE_EPISODE_STEPS:
+        raise AssertionError(f"merge episode: finite {finite}, K2 launches {K2.launches}")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -1317,7 +1672,7 @@ def main() -> int:
 
     def build(kernel):
         try:
-            kernel.load()
+            kernel.load_all() if kernel is K else kernel.load()
         except Exception as e:          # re-raised below, on the main thread
             errors.append(e)
 
@@ -1331,6 +1686,7 @@ def main() -> int:
     if errors:
         raise errors[0]
     emit({"phase": "build", "seconds": round(K.build_seconds, 3),
+          "seconds_by_dims": {str(list(dm)): round(sec, 3) for dm, (_, sec) in K.builds.items()},
           "ptxas": ptxas_entries(K.build_log), "wall_seconds_all": round(build_wall, 3),
           **card})
     ptxas2 = [ln.strip() for ln in K2.build_log.splitlines()
@@ -1344,7 +1700,6 @@ def main() -> int:
 
     # ---- 2. kernel vs plain version on the card ----------------------------
     cfg = QPIPMConfig(iters=8, gondzio=2)
-    names = tree_qp_pl.CARRY_ORDER + ["gap"]
 
     def plain_step(plan):
         nFx, nFu = 4, 4
@@ -1357,39 +1712,10 @@ def main() -> int:
         carry = su.carry0
         for _ in range(advance):      # a later carry of the same solve (plain steps)
             carry = plain(*su.const_args, *carry)[:tree_qp_pl.CARRY_FIELDS]
-        got = su.step_fn(*su.const_args, *carry)
-        torch.cuda.synchronize()
-        ref = plain(*su.const_args, *carry)
-        errs = scaled_err(got, ref, names)
-        worst = max(errs, key=lambda k: errs[k][0])
-        line = {"phase": "kernel_vs_plain", "B": B, "dtype": str(dtype)[6:],
-                "iteration": advance + 1, "worst_field": worst,
-                "worst_scaled": errs[worst][0], "max_abs_err": max(e[1] for e in errs.values())}
-        if dtype == torch.float64:
-            emit({**line, "tol_scaled": F64_TOL, **card})
-            if errs[worst][0] > F64_TOL:
-                raise AssertionError(f"kernel disagrees with its plain version: {worst} "
-                                     f"{errs[worst][0]:.3e} > {F64_TOL:.0e} (f64, B={B})")
-        else:
-            up = lambda ts: [t.double() for t in ts]
-            ref64 = plain(*up(su.const_args), *up(carry))
-            acc = {}
-            for nm, g, r, r64 in zip(names, got, ref, ref64):
-                e_k = (g.double() - r64).abs().max().item()
-                e_p = (r.double() - r64).abs().max().item()
-                bar = F32_ERR_RATIO * e_p + F32_FLOOR * r64.abs().max().item()
-                acc[nm] = (e_k, e_p, bar)
-            bad = [nm for nm, (e_k, _, bar) in acc.items() if e_k > bar]
-            lane_rel = torch.stack([((g - r).abs() / r.abs().amax()).reshape(-1, B).amax(0)
-                                    for g, r in zip(got, ref)]).amax(0)
-            emit({**line, "err_vs_f64": {nm: {"kernel": v[0], "plain": v[1], "bar": v[2]}
-                                          for nm, v in acc.items()},
-                  "lanes_over_1e-4": int((lane_rel > 1e-4).sum()),
-                  "lanes_over_1e-5": int((lane_rel > 1e-5).sum()), **card})
-            if bad:
-                raise AssertionError(f"f32 kernel less accurate than the plain version in "
-                                     f"{bad} (B={B})")
-        return plan, su, plain, carry, max(e[1] for e in errs.values())
+        err = hold_iteration(su.step_fn, plain, su.const_args, carry,
+                             {"phase": "kernel_vs_plain", "B": B, "dtype": str(dtype)[6:],
+                              "iteration": advance + 1}, card)
+        return plan, su, plain, carry, err
 
     one_iteration(256, torch.float64)
     one_iteration(256, torch.float64, advance=4)
@@ -1559,7 +1885,11 @@ def main() -> int:
     k5_line = run_shared_rows_phases(dev, card, K5)
     run_per_tree_phases(dev, card, K, K2)
 
-    # ---- 9. kernels line, card line, result ------------------------------------
+    # ---- 9. slice 8: the quadruped on K1, the merge episode on K2 -----------------
+    quad_entries = run_quadruped_phases(dev, card, K)
+    run_merge_episode_phases(dev, card, K2)
+
+    # ---- 10. kernels line, card line, result ------------------------------------
     emit({"kernels": [{
         "name": "tree_qp_ipm_iter",
         "route": "cuda",
@@ -1572,6 +1902,9 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "instantiations": [{"dims": list(K.dims[0]), "B": BENCH_B, "launches": main_launches,
+                            "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "max_abs_err": f32_err}, *quad_entries],
     }, cvar_lines, soc_line, phase_line, k5_line]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, **card})
     print(smi, flush=True)

@@ -19,11 +19,12 @@ from belief_planning_tpu_torch.models.policies import (
     cast_params,
     highway_policy_set,
     merge_policy_set,
+    quadruped_policy_set,
 )
-from belief_planning_tpu_torch.models.predictive import highway_model, merge_model
+from belief_planning_tpu_torch.models.predictive import highway_model, merge_model, quadruped_model
 from belief_planning_tpu_torch.ops import shared_rows as sr
 from belief_planning_tpu_torch.ops import soc
-from belief_planning_tpu_torch.presets import init_branch_mpc
+from belief_planning_tpu_torch.presets import init_branch_mpc, init_quad_branch_mpc
 from belief_planning_tpu_torch.solvers import cvar_pl
 from belief_planning_tpu_torch.solvers import tree_qp_pl as tpl
 from belief_planning_tpu_torch.solvers.cvar import _proj_soc_batch, build_cvar_plan
@@ -33,7 +34,7 @@ from belief_planning_tpu_torch.solvers.tree_qp import assemble_stage_cost, build
 from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig, qp_ipm_solve
 from belief_planning_tpu_torch.tree.engine import build_tree
 from belief_planning_tpu_torch.tree.topology import build_topology
-from belief_planning_tpu_torch.utils.config import BranchConstants
+from belief_planning_tpu_torch.utils.config import BranchConstants, QuadConstants
 
 torch.set_num_threads(1)
 
@@ -76,6 +77,54 @@ def qp_data(dtype=torch.float64, device="cpu"):
              x=bl(ts.x_lin), u=bl(ts.u_lin))
 
 
+QUAD_N = 5
+
+
+def quad_problem(B=B, N=QUAD_N, seed=0, device="cpu"):
+    """The quadruped's reference configuration (``scripts/bench_configs.py:
+    193-222``: v0 = 0.2, dt = 0.2, NB=2) at horizon N, with B states drawn
+    as there: ``(cons, pset, model, params, xs, zs, xRefs)``, f64."""
+    cons = QuadConstants()
+    pset = quadruped_policy_set(0.2)
+    model = quadruped_model(cons, pset, N=N, dt=0.2)
+    xRef = np.array([5.0, 5.0, 0.0])
+    params = init_quad_branch_mpc(3, 3, N, 2, xRef, cons.vxm, cons.vym, cons.rm)
+    rng = np.random.default_rng(seed)
+    xs = np.array([0.0, 1.8, 0.0]) + rng.normal(0, 0.3, (B, 3))
+    zs = np.array([2.5, 2.5, -np.pi / 2]) + rng.normal(0, 0.3, (B, 3))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
+    return cons, pset, model, params, t(xs), t(zs), t(np.tile(xRef, (B, 1)))
+
+
+def quad_setup(nFx, dtype=torch.float64, device="cpu", B=B, N=QUAD_N):
+    """K1's inputs on the quadruped's QP (tree build and cost in f64, cast to
+    ``dtype``), for the instantiation with ``nFx`` state rows: 1 is the
+    solve's (its empty Fx padded to one inert row by ``setup_ipm``), 0 the
+    same with that row taken out again (the collision row alone). Returns
+    ``(plan, cfg, mtot, setup)``; the rate cost dR makes Dab2 non-zero."""
+    _, pset, model, params, xs, zs, xRefs = quad_problem(B, N, device=device)
+    topo = build_topology(N, 2, 2, 3, 3)
+    f64 = torch.float64
+    ts = build_tree(model, topo, xs, zs, torch.zeros(B, topo.totalu, 3, dtype=f64, device=device),
+                    cast_params(pset.params, f64, device))
+    cost = assemble_stage_cost(topo, ts, params.Q, params.R, params.Qf, params.dR, params.Qslack,
+                               xRefs, torch.zeros(B, 3, dtype=f64, device=device))
+    cost = cost_to_bl(type(cost)(*(c.to(dtype) for c in cost)))
+    bl = lambda a: _to_bl(a.to(dtype))
+    plan = build_stage_plan(topo)
+    cfg = QPIPMConfig(iters=8, gondzio=GONDZIO)
+    su = tpl.setup_ipm(plan, cost, bl(ts.A), bl(ts.Bm), bl(ts.dh), bl(ts.h0), params.Fx,
+                       params.bx, params.Fu, params.bu, bl(ts.x_lin), bl(ts.u_lin), cfg)
+    if nFx == 0:
+        rows = {"s", "sl1", "lam1", "sl3", "lam3", "b1"}
+        one = lambda n, c: c[:, :1].contiguous() if n in rows else (c[:0] if n == "Fx" else c)
+        su = su._replace(const_args=[one(n, c) for n, c in zip(tpl.CONST_ORDER, su.const_args)],
+                         carry0=tuple(one(n, c) for n, c in zip(tpl.CARRY_ORDER, su.carry0)),
+                         step_fn=None)
+    mtot = float(topo.totalu * (2 * (nFx + 1) + 6))
+    return plan, cfg, mtot, su
+
+
 CVAR_NAMES = cvar_pl.CARRY_ORDER + ["gap"]
 
 
@@ -88,7 +137,7 @@ def cvar_problem(kind, N=3, NB=1, B=4, seed=0, device="cpu"):
     the ramp, and the dh[0] floor on every other lane. ``"overtake"``: the
     CVaR overtake (m=3, ralpha=0.9), states drawn as ``bench_cvar.py``,
     shared bounds and no transform."""
-    from belief_planning_tpu_torch.utils.config import BranchConstants
+    from belief_planning_tpu_torch.utils.config import BranchConstants, QuadConstants
 
     f64 = torch.float64
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=f64, device=device)
@@ -230,6 +279,61 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     for bad in (bad_shape, bad_dtype, strided, cpu_const):
         with pytest.raises(ValueError):
             su.step_fn(*bad)
+    assert tpl.KERNEL.launches == before
+
+
+QUAD_KERNEL_DIMS = [dm for dm in tpl.KERNEL_DIMS if dm[0] == 3]
+
+
+@pytest.mark.parametrize("dims", QUAD_KERNEL_DIMS, ids=str)
+@pytest.mark.parametrize("Bn", [6, 2001])
+def test_quadruped_kernel_matches_plain_f64(cuda_device, dims, Bn):
+    """K1 at the quadruped's dims (3, 3, nFx, 6), f64: every field within
+    1e-10 of its magnitude, one launch counted at those dims; at B=2001 the
+    B=6 lanes are repeated with each repeat's multipliers scaled apart."""
+    plan, cfg, mtot, su = quad_setup(dims[2], device=cuda_device)
+    idx = torch.arange(Bn, device=cuda_device) % B
+    scale = 1.0 + 1e-3 * torch.arange(Bn, dtype=torch.float64, device=cuda_device)
+    consts = [c if name in ("Fx", "Fu", "bu") else c[..., idx].contiguous()
+              for name, c in zip(tpl.CONST_ORDER, su.const_args)]
+    carry = [(c[..., idx] * (scale if name.startswith("lam") else 1.0)).contiguous()
+             for name, c in zip(tpl.CARRY_ORDER, su.carry0)]
+    before = tpl.KERNEL.dims_launches[dims]
+    got = tpl.fused_iteration(plan, cfg, dims[2], 6, mtot)(*consts, *carry)
+    assert tpl.KERNEL.dims_launches[dims] == before + 1
+    ref = tpl.make_iteration(plan, cfg, dims[2], 6, mtot)(*consts, *carry)
+    for name, a, b in zip(NAMES, got, ref):
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        assert err <= ITER_TOL, (name, dims, Bn, err)
+
+
+@pytest.mark.parametrize("dims", QUAD_KERNEL_DIMS, ids=str)
+def test_quadruped_kernel_matches_plain_f32(cuda_device, dims):
+    """f32 at the quadruped's dims: as accurate as the plain version in f32
+    (the bar of :func:`test_kernel_matches_plain_f32`)."""
+    plan, cfg, mtot, su = quad_setup(dims[2], torch.float32, cuda_device)
+    got = tpl.fused_iteration(plan, cfg, dims[2], 6, mtot)(*su.const_args, *su.carry0)
+    plain = tpl.make_iteration(plan, cfg, dims[2], 6, mtot)
+    ref = plain(*su.const_args, *su.carry0)
+    up = lambda ts: [t.double() for t in ts]
+    ref64 = plain(*up(su.const_args), *up(su.carry0))
+    for name, g, r, r64 in zip(NAMES, got, ref, ref64):
+        e_kernel = (g.double() - r64).abs().max().item()
+        e_plain = (r.double() - r64).abs().max().item()
+        assert e_kernel <= 2 * e_plain + 1e-6 * r64.abs().max().item(), (name, dims)
+
+
+def test_kernel_raises_for_unbuilt_dims(cuda_device):
+    """CUDA tensors at dims no library is built for raise before any launch
+    (here the quadruped with nFu = 5): no plain fallback on the card."""
+    plan, cfg, mtot, su = quad_setup(1, device=cuda_device)
+    consts = dict(zip(tpl.CONST_ORDER, su.const_args))
+    consts["Fu"], consts["bu"] = consts["Fu"][:5], consts["bu"][:, :5]
+    carry = dict(zip(tpl.CARRY_ORDER, su.carry0))
+    carry["sl2"], carry["lam2"] = carry["sl2"][:, :5], carry["lam2"][:, :5]
+    before = tpl.KERNEL.launches
+    with pytest.raises(ValueError, match="built for"):
+        tpl.fused_iteration(plan, cfg, 1, 5, mtot)(*consts.values(), *carry.values())
     assert tpl.KERNEL.launches == before
 
 
