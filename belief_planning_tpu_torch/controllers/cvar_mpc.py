@@ -11,6 +11,10 @@ per-lane shear transform ``S`` and lane bounds ``bx`` enter the solve.
 - :func:`make_cvar_mpc_step` solves each tree with the independently
   written ``solvers/cvar_ipm.cvar_ipm_solve`` (the reference's per-tree
   step under ``vmap``), with its optional barrier restart.
+
+:class:`BranchMPCCVaR` wraps the per-tree step for one tree with the
+reference controller's ``solve(x, z, xRef, S, bx)`` API, for the host
+environments.
 """
 
 from __future__ import annotations
@@ -18,14 +22,17 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from belief_planning_tpu_torch.controllers.branch_mpc import (
     MPCCarry,
     _cast,
+    _first,
     _init_carry_fn,
     _new_carry,
+    bt2array,
 )
 from belief_planning_tpu_torch.models.policies import cast_params
 from belief_planning_tpu_torch.models.predictive import PredictiveModel
@@ -207,3 +214,70 @@ def make_cvar_mpc_batched_step(
         return new_carry, res
 
     return topo, cplan, _init_carry_fn(topo, params.d, dev), step
+
+
+class BranchMPCCVaR:
+    """One tree's nested-CVaR controller with the reference's API:
+    ``solve(x, z, xRef=None, S=None, Fx=None, bx=None)`` returns the applied
+    input and keeps ``uPred`` and ``xPred`` (numpy); ``BT2array`` as
+    :class:`~belief_planning_tpu_torch.controllers.branch_mpc.BranchMPC`'s.
+    It runs :func:`make_cvar_mpc_step` on a batch of one tree in ``dtype``.
+
+    With ``use_S`` a given ``S`` is the state transform of that solve; ``S=None``
+    solves without one (no transform and no dh[0] floor), as the reference
+    does after the merge's lane switch. ``bx`` replaces the state bounds for
+    that solve. ``device``: ``None`` = ``"cuda"``; pass ``"cpu"`` to run on the
+    CPU.
+    """
+
+    def __init__(self, mpcParameters, predictiveModel: PredictiveModel, policy_params,
+                 ralpha: float, ipm: CVaRIPMConfig = CVaRIPMConfig(iters=80),
+                 replicate_quirks: bool = True, use_S: bool = False, dtype=torch.float64,
+                 prep_dtype=None, restart: int = 0,
+                 restart_cfg: Optional[CVaRIPMConfig] = None, device=None):
+        self.params = mpcParameters
+        self.model = predictiveModel
+        self.policy_params = policy_params
+        self.ralpha = ralpha
+        self.use_S = use_S
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.topo, self.cplan, self._init_carry, self._step = make_cvar_mpc_step(
+            predictiveModel, mpcParameters, ralpha, ipm, replicate_quirks, use_S,
+            prep_dtype=prep_dtype, restart=restart, restart_cfg=restart_cfg, device=self.device)
+        self.carry = self._init_carry(1, dtype)
+        self.N = mpcParameters.N
+        bx = np.asarray(mpcParameters.bx).ravel()
+        self.psimax = float(bx[2]) if bx.size > 2 else 0.25
+        self.xPred = None
+        self.uPred = None
+        self.feasible = 1
+        self.last = None
+
+    @property
+    def predictiveModel(self):
+        return self.model
+
+    def update_policy_params(self, policy_params):
+        self.policy_params = policy_params
+
+    def _t(self, a, shape):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=self.dtype,
+                               device=self.device).reshape(shape)
+
+    def solve(self, x, z, xRef=None, S=None, Fx=None, bx=None):
+        if xRef is None:
+            xRef = self.params.xRef
+        n = self.params.n
+        S_t = self._t(S, (1, n, n)) if (self.use_S and S is not None) else None
+        bx_t = self._t(bx, (1, -1)) if bx is not None else None
+        self.carry, res = self._step(self.carry, self._t(x, (1, n)), self._t(z, (1, n)),
+                                     self._t(xRef, (1, n)), self.policy_params, S=S_t, bx=bx_t)
+        self.last = _first(res)
+        self.xPred = self.last.xPred
+        self.uPred = self.last.uPred
+        self.feasible = 1
+        return self.uPred[0]
+
+    def BT2array(self):
+        return bt2array(self.topo, self.last)

@@ -6,7 +6,10 @@ floats and ints, its ``TreeState`` holds arrays (numpy after ``np.asarray``),
 and its policy params are NamedTuples (``MaintainParams``,
 ``MaintainTrackVParams``, ``BrakeParams``, ``LaneChangeParams``,
 ``ForwardParams``) of arrays, some with a reference line (``RefLine``) in
-``psiref``, or ``None`` (the quadruped's stop policy). These functions read them by field name (this
+``psiref``, or ``None`` (the quadruped's stop policy). Its overtake worlds
+(``envs.batched_highway.WorldState``) and the host environments' vehicles
+(``envs.highway.Vehicle``) convert too, so that both packages start a
+closed loop from one state. These functions read them by field name (this
 package imports nothing of the JAX package) and return this package's
 equivalents, so both packages compute from identical numbers.
 """
@@ -18,6 +21,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from belief_planning_tpu_torch.controllers.branch_mpc import MPCCarry
+from belief_planning_tpu_torch.envs.batched_highway import WorldState
+from belief_planning_tpu_torch.envs.highway import Vehicle
 from belief_planning_tpu_torch.models.policies import (
     BrakeParams,
     ForwardParams,
@@ -109,3 +115,27 @@ def convert(params, cons, policy_params, device, dtype=torch.float64):
     """``(params, cons, policy_params)`` of the JAX package → this package's."""
     return (convert_mpc_params(params), convert_constants(cons),
             convert_policy_params(policy_params, device, dtype))
+
+
+def convert_overtake_worlds(worlds, device, dtype=torch.float64) -> WorldState:
+    """A batch of the JAX package's overtake worlds (``WorldState`` with a
+    leading world axis, its carry batch-leading) → this package's: reals in
+    ``dtype``, lanes as int64, flags as bool. The carry keeps the fields of
+    this package's ``MPCCarry`` (the ADMM duals are not carried)."""
+    t = lambda a, dt: torch.as_tensor(np.array(a), device=device).to(dt)
+    c = worlds.mpc_carry
+    carry = MPCCarry(u_lin=t(c.u_lin, dtype), p=t(c.p, dtype), old_input=t(c.old_input, dtype),
+                     initialized=t(c.initialized, torch.bool))
+    return WorldState(
+        mpc_carry=carry, x=t(worlds.x, dtype), z=t(worlds.z, dtype),
+        ego_lane=t(worlds.ego_lane, torch.long), obs_lane=t(worlds.obs_lane, torch.long),
+        obs_des_y=t(worlds.obs_des_y, dtype), lc_target=t(worlds.lc_target, dtype),
+        collided=t(worlds.collided, torch.bool))
+
+
+def convert_vehicles(veh_set):
+    """The JAX package's host-environment vehicles → this package's
+    ``Vehicle`` list (states copied as f64 numpy arrays)."""
+    return [Vehicle(state=np.array(v.state, dtype=np.float64), dt=float(v.dt),
+                    v_length=float(v.v_length), v_width=float(v.v_width),
+                    backupidx=int(v.backupidx), laneidx=int(v.laneidx)) for v in veh_set]

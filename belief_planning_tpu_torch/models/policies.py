@@ -88,8 +88,13 @@ def brake_params_mpc(Kpsi, psiref=None) -> BrakeParams:
     """Constants of the reference's symbolic (MPC) path; with a ref line that
     path uses the simulator's (-5, 3)."""
     if psiref is not None:
-        return BrakeParams(Kpsi=Kpsi, a_brake=-5.0, gamma=3.0, psiref=psiref)
+        return brake_params_sim(Kpsi, psiref)
     return BrakeParams(Kpsi=Kpsi, a_brake=-7.0, gamma=5.0)
+
+
+def brake_params_sim(Kpsi, psiref=None) -> BrakeParams:
+    """Constants of the reference's numeric (simulator) path."""
+    return BrakeParams(Kpsi=Kpsi, a_brake=-5.0, gamma=3.0, psiref=psiref)
 
 
 class LaneChangeParams(NamedTuple):
@@ -97,11 +102,12 @@ class LaneChangeParams(NamedTuple):
 
 
 def lane_change(x, p: LaneChangeParams):
-    """State feedback toward the target with the reference's fixed LQR gains."""
+    """State feedback toward the target with the reference's fixed LQR gains.
+    A per-lane target ``(..., 4)`` broadcasts against ``x``'s leading dims."""
     t = p.x_target
     return torch.stack([
-        -0.8558 * (x[..., 2] - t[2]),
-        -0.3162 * (x[..., 1] - t[1]) - 3.9889 * (x[..., 3] - t[3]),
+        -0.8558 * (x[..., 2] - t[..., 2]),
+        -0.3162 * (x[..., 1] - t[..., 1]) - 3.9889 * (x[..., 3] - t[..., 3]),
     ], dim=-1)
 
 
@@ -135,13 +141,14 @@ class PolicySet(NamedTuple):
         return len(self.fns)
 
 
-def highway_policy_set(cons, x_target) -> PolicySet:
-    """The overtake demo's [maintain, brake, lane-change] set (MPC-path brake)."""
+def highway_policy_set(cons, x_target, mpc_path: bool = True) -> PolicySet:
+    """The overtake demo's [maintain, brake, lane-change] set: the MPC path's
+    brake constants, or with ``mpc_path=False`` the simulator's."""
     return PolicySet(
         fns=(maintain, brake, lane_change),
         params=(
             MaintainParams(Kpsi=cons.Kpsi),
-            brake_params_mpc(cons.Kpsi),
+            brake_params_mpc(cons.Kpsi) if mpc_path else brake_params_sim(cons.Kpsi),
             LaneChangeParams(x_target=torch.as_tensor(x_target, dtype=torch.float64)),
         ),
     )
@@ -159,6 +166,60 @@ def merge_policy_set(cons, v0, psiref: Optional[RefLine]) -> PolicySet:
 def quadruped_policy_set(v0) -> PolicySet:
     """The quadruped demo's [forward, stop] set."""
     return PolicySet(fns=(quad_forward, quad_stop), params=(ForwardParams(v0=v0), None))
+
+
+def lane_flags(params, in_axes):
+    """Which leaves of ``params`` (a tuple of policy NamedTuples) carry a
+    leading lane axis, from a vmap in-axes prefix as the JAX package takes
+    it (``policy_in_axes``): ``None`` shares a policy's params, or one
+    field's, across lanes; ``0`` gives them a leading lane axis, e.g.
+    ``(None, None, LaneChangeParams(x_target=0))``. Returns one tuple of
+    bools a policy (``None`` for a ``None`` policy), or ``None`` when no leaf
+    is per-lane."""
+    if in_axes is None:
+        return None
+    if len(in_axes) != len(params):
+        raise ValueError(f"policy_in_axes has {len(in_axes)} entries for {len(params)} policies")
+    flags = []
+    for p, ax in zip(params, in_axes):
+        if p is None:
+            flags.append(None)
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,) * len(p)
+        f = []
+        for name, v, a in zip(p._fields, p, axes):
+            if a is not None and a != 0:
+                raise ValueError(f"policy_in_axes: {name} has axis {a!r}; only None or 0")
+            if a == 0 and isinstance(v, RefLine):
+                raise NotImplementedError(f"policy_in_axes: a per-lane reference line ({name})")
+            f.append(a == 0 and v is not None)
+        flags.append(tuple(f))
+    return tuple(flags) if any(any(f) for f in flags if f is not None) else None
+
+
+def lane_leaves(params, flags):
+    """The per-lane leaves of ``params``, in order (see :func:`lane_flags`)."""
+    if flags is None:
+        return []
+    return [v for p, f in zip(params, flags) if f is not None for v, fl in zip(p, f) if fl]
+
+
+def with_lane_leaves(params, flags, leaves):
+    """``params`` with its per-lane leaves replaced by ``leaves``, in order."""
+    if flags is None:
+        return params
+    it = iter(leaves)
+    return tuple(p if f is None else type(p)(*(next(it) if fl else v for v, fl in zip(p, f)))
+                 for p, f in zip(params, flags))
+
+
+def lanes_over(params, flags, lead):
+    """``params`` with each per-lane leaf ``(Bt, ...)`` viewed as ``(Bt, 1,
+    ..., 1, ...)``, to broadcast against states of leading dims ``lead``
+    (``lead[0] == Bt``)."""
+    ones = (1,) * (len(lead) - 1)
+    return with_lane_leaves(params, flags, [a.reshape(a.shape[:1] + ones + a.shape[1:])
+                                            for a in lane_leaves(params, flags)])
 
 
 def cast_params(params, dtype, device):

@@ -18,7 +18,12 @@ from torch.func import grad, jacfwd, vmap
 
 from belief_planning_tpu_torch.models import safety
 from belief_planning_tpu_torch.models.dynamics import dubins, quad_kinematics
-from belief_planning_tpu_torch.models.policies import PolicySet
+from belief_planning_tpu_torch.models.policies import (
+    PolicySet,
+    lane_leaves,
+    lanes_over,
+    with_lane_leaves,
+)
 from belief_planning_tpu_torch.ops.linearize import linearize_dynamics
 from belief_planning_tpu_torch.ops.rollout import rollout_policy
 from belief_planning_tpu_torch.ops.softmath import softmin, softsat
@@ -81,13 +86,20 @@ class PredictiveModel:
     def branch_p(self, x, z, policy_params):
         return self.prob_from_h(self.branch_h(x, z, policy_params))
 
-    def branch_eval(self, x, z, policy_params):
+    def branch_eval(self, x, z, policy_params, lanes=None):
         """``(p (..., m), dp (..., m, n))``: probabilities and their Jacobian
-        with respect to the ego state."""
-        def single(xx, zz):
-            f = lambda x_: self.branch_p(x_, zz, policy_params)
+        with respect to the ego state. ``lanes`` (``policies.lane_flags``)
+        marks the leaves of ``policy_params`` that carry a leading lane axis
+        ``(x.shape[0], ...)``; each sample then gets its own lane's."""
+        def single(xx, zz, *per_lane):
+            pp = with_lane_leaves(policy_params, lanes, per_lane)
+            f = lambda x_: self.branch_p(x_, zz, pp)
             return f(xx), jacfwd(f)(xx)
-        return _batched(single, x, z)
+        lead = x.shape[:-1]
+        k = len(lead)
+        per_lane = [a.expand(lead + a.shape[k:]).reshape((-1,) + a.shape[k:])
+                    for a in lane_leaves(lanes_over(policy_params, lanes, lead), lanes)]
+        return _batched(single, x, z, *per_lane)
 
     def col_raw(self, x, z):
         """``(h, dh)``: the pairwise margin and its gradient in ``x``."""
@@ -96,12 +108,13 @@ class PredictiveModel:
         return _batched(single, x, z)
 
 
-def _batched(single, x, z):
-    """Apply a per-sample function to ``x, z`` with any leading batch dims."""
+def _batched(single, x, z, *flat):
+    """Apply a per-sample function to ``x, z`` with any leading batch dims
+    (and to ``flat``, already one row a sample)."""
     if x.ndim == 1:
-        return single(x, z)
+        return single(x, z, *flat)
     lead = x.shape[:-1]
-    outs = vmap(single)(x.reshape(-1, x.shape[-1]), z.reshape(-1, z.shape[-1]))
+    outs = vmap(single)(x.reshape(-1, x.shape[-1]), z.reshape(-1, z.shape[-1]), *flat)
     return tuple(o.reshape(lead + o.shape[1:]) for o in outs)
 
 

@@ -1,4 +1,5 @@
-"""Safety (barrier) functions, h ≥ 0 ⇔ safe; the MPC (unclipped) path.
+"""Safety (barrier) functions, h ≥ 0 ⇔ safe. The MPC path is unclipped; the
+environments' numeric path clips the vehicle margins to ±5 (``clip``).
 
 The quadruped's center-distance margin takes the 1-norm on the MPC path and
 the 2-norm in the reference's environment, selected by ``ord``."""
@@ -27,11 +28,15 @@ def _abs(x):
     return torch.where(x >= 0, x, -x)
 
 
-def veh_col(x1, x2, size, alpha=1.0):
+def veh_col(x1, x2, size, alpha=1.0, clip=None):
     """Smooth rectangle-collision margin between two vehicle states
-    ``(..., ≥2)``: soft max of ``|ΔX|−size[0]`` and ``|ΔY|−size[1]``."""
+    ``(..., ≥2)``: soft max of ``|ΔX|−size[0]`` and ``|ΔY|−size[1]``, each
+    clipped to ``±clip`` when it is given (the numeric path's 5)."""
     dx = _abs(x1[..., 0] - x2[..., 0]) - size[0]
     dy = _abs(x1[..., 1] - x2[..., 1]) - size[1]
+    if clip is not None:
+        dx = torch.clamp(dx, -clip, clip)
+        dy = torch.clamp(dy, -clip, clip)
     return _expblend(dx, dy, alpha)
 
 

@@ -86,16 +86,22 @@ def _sym_broadcast_dR(dR):
 def assemble_stage_cost(topo: TreeTopology, ts: TreeState, Q, R, Qf, dR, Qslack,
                         xRef, OldInput, variant: str = "prox",
                         replicate_quirks: bool = True) -> StageCost:
-    """Per-stage cost arrays equivalent to the reference ``buildCost``
-    (prox variant). ``xRef (Bt, n)``, ``OldInput (Bt, d)``."""
-    if variant != "prox":
-        raise NotImplementedError(f"variant {variant!r}: only 'prox' is ported")
+    """Per-stage cost arrays equivalent to the reference ``buildCost``:
+    ``variant="prox"`` (``BranchMPCProx``: dQ = 3Q, the input-rate coupling)
+    or ``"branch"`` (the live ``BranchMPC``: dQ = Q/2, the leaf branch's last
+    xRef term through Qf, no rate coupling and no terminal linear row).
+    ``xRef (Bt, n)``, ``OldInput (Bt, d)``."""
+    if variant not in ("prox", "branch"):
+        raise NotImplementedError(
+            f"variant {variant!r}: only 'prox' and 'branch' are ported; 'robust' (the "
+            "robust controller's cost) is ROADMAP.md Queue A item 5")
+    prox = variant == "prox"
     n, d = topo.n, topo.d
     dtype, dev = ts.x_lin.dtype, ts.x_lin.device
     Bt = ts.x_lin.shape[0]
     as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
     Q, R, Qf, dR, Qslack = map(as_t, (Q, R, Qf, dR, Qslack))
-    dQ = Q * 3.0
+    dQ = Q * (3.0 if prox else 0.5)
     dRm = torch.diag(dR)
 
     ub = np.asarray(topo.unode_branch)
@@ -108,27 +114,34 @@ def assemble_stage_cost(topo: TreeTopology, ts: TreeState, Q, R, Qf, dR, Qslack,
     steps = np.asarray(topo.unode_step)
     is_last = steps == np.asarray(topo.blen)[ub] - 1
     leaf_u = np.asarray(topo.is_leaf)[ub]
+    mask_ll = as_t((is_last & leaf_u).astype(np.float64))
 
-    # One −w_j·dR block per input-chain edge (pred(j) → j); the parent-side
-    # (u_prev²) part already sits in the parent's diagonal, so Daa2 is zero.
     Daa2 = ts.x_lin.new_zeros((Bt, topo.totalu, d, d))
-    has_edge = np.ones(topo.totalu, dtype=bool)
-    has_edge[0] = False                  # the root's incoming edge is OldInput
-    he = as_t(has_edge.astype(np.float64))[:, None, None]
-    Dab2 = he * (-2.0 * w_u[..., None, None] * dRm)
-    # diagonals: root w(R+dR); non-root w(R+2dR); leaf-last w·R (overwrite
-    # quirk) or w(R+dR) corrected
-    Ru2 = 2.0 * w_u[..., None, None] * (R + 2.0 * dRm)
-    Ru2[:, 0] = 2.0 * (R + dRm)
-    mask_ll = as_t((is_last & leaf_u).astype(np.float64))[:, None, None]
-    ll_fix = -2.0 * dRm if replicate_quirks else -dRm
-    Ru2 = Ru2 + mask_ll * (2.0 * w_u[..., None, None] * ll_fix)
+    if prox:
+        # One −w_j·dR block per input-chain edge (pred(j) → j); the parent-side
+        # (u_prev²) part already sits in the parent's diagonal, so Daa2 is zero.
+        has_edge = np.ones(topo.totalu, dtype=bool)
+        has_edge[0] = False                  # the root's incoming edge is OldInput
+        he = as_t(has_edge.astype(np.float64))[:, None, None]
+        Dab2 = he * (-2.0 * w_u[..., None, None] * dRm)
+        # diagonals: root w(R+dR); non-root w(R+2dR); leaf-last w·R (overwrite
+        # quirk) or w(R+dR) corrected
+        Ru2 = 2.0 * w_u[..., None, None] * (R + 2.0 * dRm)
+        Ru2[:, 0] = 2.0 * (R + dRm)
+        ll_fix = -2.0 * dRm if replicate_quirks else -dRm
+        Ru2 = Ru2 + mask_ll[:, None, None] * (2.0 * w_u[..., None, None] * ll_fix)
+    else:
+        # the leaf branch's last row takes Qf for its xRef term
+        qx = qx + mask_ll[:, None] * (-2.0 * w_u[..., None] * ((xRef @ Qf) - (xRef @ Q))[:, None, :])
+        Dab2 = ts.x_lin.new_zeros((Bt, topo.totalu, d, d))
+        Ru2 = 2.0 * w_u[..., None, None] * R
 
     qu = ts.x_lin.new_zeros((Bt, topo.totalu, d))
     if replicate_quirks:
         # scalar broadcast: qu[0:d] = −2·(OldInput·dR)
         qu[:, 0] = (-2.0 * (OldInput @ dR))[:, None]
-        Ru2[:, 0] = Ru2[:, 0] + 2.0 * _sym_broadcast_dR(dR)
+        if prox:
+            Ru2[:, 0] = Ru2[:, 0] + 2.0 * _sym_broadcast_dR(dR)
     else:
         qu[:, 0] = -2.0 * OldInput @ dRm.T
         Ru2[:, 0] = Ru2[:, 0] + 2.0 * dRm
@@ -136,7 +149,10 @@ def assemble_stage_cost(topo: TreeTopology, ts: TreeState, Q, R, Qf, dR, Qslack,
     leaf_ids = np.nonzero(np.asarray(topo.is_leaf))[0]
     w_leaf = ts.w[:, leaf_ids]
     Pterm2 = 2.0 * w_leaf[..., None, None] * Qf
-    qterm = -2.0 * w_leaf[..., None] * (xRef @ Qf)[:, None, :]
+    if prox:
+        qterm = -2.0 * w_leaf[..., None] * (xRef @ Qf)[:, None, :]
+    else:
+        qterm = ts.x_lin.new_zeros((Bt, len(leaf_ids), n))
 
     return StageCost(Qx2=Qx2, qx=qx, Ru2=Ru2, qu=qu, Daa2=Daa2, Dab2=Dab2,
                      Pterm2=Pterm2, qterm=qterm, slack_lin=Qslack[1] * w_u,

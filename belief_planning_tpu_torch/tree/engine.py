@@ -15,6 +15,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from belief_planning_tpu_torch.models.policies import lanes_over
 from belief_planning_tpu_torch.ops.rollout import rollout_controls
 from belief_planning_tpu_torch.tree.topology import TreeTopology
 
@@ -63,9 +64,11 @@ def shift_warm_start(topo: TreeTopology, u_prev, p_prev):
     return torch.gather(u_prev, 1, src[..., None].expand(-1, -1, u_prev.shape[-1]))
 
 
-def build_tree(model, topo: TreeTopology, x, z, u_lin, policy_params) -> TreeState:
+def build_tree(model, topo: TreeTopology, x, z, u_lin, policy_params, lanes=None) -> TreeState:
     """Build the trees from measured states ``x, z (Bt, n)`` and warm-start
-    inputs ``u_lin (Bt, totalu, d)`` (zeros on the first solve)."""
+    inputs ``u_lin (Bt, totalu, d)`` (zeros on the first solve). ``lanes``
+    (``policies.lane_flags``) marks the policy-param leaves that carry a
+    leading tree axis, one value a tree."""
     Bt = x.shape[0]
     dtype, dev = x.dtype, x.device
     n, d, N, m = topo.n, topo.d, topo.N, topo.m
@@ -95,8 +98,8 @@ def build_tree(model, topo: TreeTopology, x, z, u_lin, policy_params) -> TreeSta
 
         xl = x_last[:, lo:hi]
         zl = z_last[:, lo:hi]
-        p, dp = model.branch_eval(xl, zl, policy_params)       # (Bt,nb,m), (Bt,nb,m,n)
-        zp = model.zpred(zl, policy_params)                    # (Bt,nb,m,N,n)
+        p, dp = model.branch_eval(xl, zl, policy_params, lanes)       # (Bt,nb,m), (Bt,nb,m,n)
+        zp = model.zpred(zl, lanes_over(policy_params, lanes, zl.shape[:-1]))  # (Bt,nb,m,N,n)
         p_all[:, lo:hi] = p
         dp_all[:, lo:hi] = dp
         w_all[:, clo:chi] = (w_all[:, lo:hi, None] * p).reshape(Bt, nb * m)

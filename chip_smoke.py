@@ -107,8 +107,20 @@ Phases, one JSON line each:
    in f64 at B=8, IPM-8, three steps, card against CPU: u, x, z < 1e-7,
    the same merged flags) and ``merge_episode`` (world-steps/s at
    B=32768, IPM-24, f32, over 10 warm steps, 24 K2 launches a step);
-10. the ``kernels`` line (all five kernels; K1's with an entry for each
-    instantiation), the ``nvidia-smi`` line, and the result line.
+10. slice 9, the closed-loop overtake ensemble on K1 and the host loops:
+    ``overtake_episode_vs_cpu`` (``envs/batched_highway.
+    make_batched_overtake_fused`` in f64 at N=8, NB=2, B=8, IPM-8, three
+    steps with the same draws, card against CPU: u, x, z < 1e-7, equal
+    lanes, 24 K1 launches); ``overtake_episode`` (world-steps/s at
+    B=32768, IPM-8 with 2 correctors, f32, over 10 warm steps after a cold
+    one, 8 K1 launches a step, feasible, collided and lane-intent shares, a
+    profiled world step); ``highway_host_loop`` (``HighwayEnv`` +
+    ``BranchMPCProx`` for 10 steps and ``HighwayMergeEnv`` +
+    ``BranchMPCCVaR`` for 3, the demos' widths at IPM-8, card against CPU in
+    f64: states and inputs < 1e-7, equal backup choices; seconds a step);
+11. the ``kernels`` line (all five kernels; K1's with an entry for each
+    instantiation and its main-path launches by path), the ``nvidia-smi``
+    line, and the result line.
 
 Every kernel source is built at the start, in parallel (one nvcc each).
 
@@ -167,17 +179,23 @@ def nvidia_smi_line():
     return out[0].strip()
 
 
+def overtake_cons():
+    """The overtake demo's constants (``examples/main_branch.py:29-33``)."""
+    from belief_planning_tpu_torch.utils.config import BranchConstants
+
+    return BranchConstants(s1=2, s2=3, c2=0.5, tran_diag=0.3, alpha=1, R=1.2,
+                           am=6.0, rm=0.3, J_c=20, s_c=1, ylb=0., yub=7.2,
+                           L=4, W=2.5, col_alpha=5, Kpsi=0.1)
+
+
 def overtake_setup():
     """The bench's reference overtake configuration (the port's counterpart
     of ``bench.py``'s setup)."""
     from belief_planning_tpu_torch.models.policies import highway_policy_set
     from belief_planning_tpu_torch.models.predictive import highway_model
     from belief_planning_tpu_torch.presets import init_branch_mpc
-    from belief_planning_tpu_torch.utils.config import BranchConstants
 
-    cons = BranchConstants(s1=2, s2=3, c2=0.5, tran_diag=0.3, alpha=1, R=1.2,
-                           am=6.0, rm=0.3, J_c=20, s_c=1, ylb=0., yub=7.2,
-                           L=4, W=2.5, col_alpha=5, Kpsi=0.1)
+    cons = overtake_cons()
     xRef = np.array([0.5, 1.8, 15.0, 0.0])
     pset = highway_policy_set(cons, xRef)
     model = highway_model(cons, pset, N=N, dt=0.1)
@@ -1635,6 +1653,165 @@ def run_merge_episode_phases(dev, card, K2):
         raise AssertionError(f"merge episode: finite {finite}, K2 launches {K2.launches}")
     return line
 
+OVERTAKE_EPISODE_B = 32768
+OVERTAKE_EPISODE_STEPS = 10
+HOST_QP_STEPS = 10
+HOST_MERGE_STEPS = 3
+
+
+def run_overtake_episode_phases(dev, card, K):
+    """The closed-loop overtake ensemble (``envs/batched_highway.
+    make_batched_overtake_fused``, one batched QP step on K1 a world step,
+    a lane-change target a world): the card in f64 against the CPU's plain
+    version over 3 steps at B=8 with the same draws, then world-steps/s at
+    B=32768, IPM-8 with 2 correctors, f32, over 10 warm steps, and one
+    profiled world step. Returns the timed run's K1 launches."""
+    from belief_planning_tpu_torch.envs.batched_highway import make_batched_overtake_fused
+    from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
+
+    f32, f64 = torch.float32, torch.float64
+    cons = overtake_cons()
+    pset, model, params = overtake_setup()
+    cfg = QPIPMConfig(iters=8, gondzio=2)
+    steps, B = 3, 8
+    draws = torch.rand((steps, B, 2), generator=torch.Generator().manual_seed(0), dtype=f64)
+    trajs, worlds = {}, {}
+    for where in ("cuda", "cpu"):
+        _, init_w, episode = make_batched_overtake_fused(
+            cons, model, params, "prox", ipm=cfg, dtype=f64,
+            device=dev if where == "cuda" else "cpu")
+        w0 = init_w(B, seed=0)
+        K.launches = 0
+        worlds[where], traj = episode(w0, steps, draws=draws)
+        launches = K.launches
+        trajs[where] = {k: v.cpu() for k, v in traj.items()}
+        if where == "cuda":
+            launches_card = launches
+    diff = {k: (trajs["cuda"][k] - trajs["cpu"][k]).abs().max().item() for k in ("u", "x", "z")}
+    same = {f: torch.equal(getattr(worlds["cuda"], f).cpu(), getattr(worlds["cpu"], f))
+            for f in ("ego_lane", "obs_lane", "collided")}
+    same["feasible"] = torch.equal(trajs["cuda"]["feasible"], trajs["cpu"]["feasible"])
+    lc = (worlds["cuda"].lc_target.cpu() - worlds["cpu"].lc_target).abs().max().item()
+    emit({"phase": "overtake_episode_vs_cpu", "B": B, "N": params.N, "NB": params.NB,
+          "steps": steps, "dtype": "float64", "ipm_iters": cfg.iters, "max_abs_diff": diff,
+          "lc_target_diff": lc, "equal": same, "k1_launches": launches_card,
+          "launches_expected": cfg.iters * steps, "tol": 1e-7, **card})
+    if not (max(diff.values()) < 1e-7 and lc < 1e-7 and all(same.values())
+            and launches_card == cfg.iters * steps):
+        raise AssertionError(f"overtake episode, card vs CPU: {diff}, equal {same}, "
+                             f"K1 launches {launches_card}")
+
+    Bt, T = OVERTAKE_EPISODE_B, OVERTAKE_EPISODE_STEPS
+    _, init_w, episode = make_batched_overtake_fused(cons, model, params, "prox", ipm=cfg,
+                                                     dtype=f32)
+    w0 = init_w(Bt, seed=0)
+    t0 = time.perf_counter()
+    w1, _ = episode(w0, 1, seed=1)                                  # the cold first step
+    _ = w1.x.cpu()
+    cold_s = time.perf_counter() - t0
+    K.launches = 0
+    K.dims_launches = {dm: 0 for dm in K.dims}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    worlds, traj = episode(w1, T, seed=2, t0=1)
+    u = traj["u"].cpu()
+    sec = time.perf_counter() - t0
+    launches, by_dims = K.launches, dict(K.dims_launches)
+    finite = bool(u.isfinite().all()) and bool(traj["x"].isfinite().all())
+    feas = traj["feasible"].float()
+    line = {"phase": "overtake_episode", "B": Bt, "N": params.N, "NB": params.NB,
+            "ipm_iters": cfg.iters, "gondzio": cfg.gondzio, "dtype": "float32",
+            "steps_timed": T, "seconds": sec, "world_steps_per_s": Bt * T / sec,
+            "step_ms": sec / T * 1e3, "cold_step_s": cold_s, "k1_launches": launches,
+            "launches_by_dims": {str(list(k)): v for k, v in by_dims.items()},
+            "launches_expected": cfg.iters * T, "finite": finite,
+            "feasible_share": feas.mean().item(), "feasible_share_last": feas[:, -1].mean().item(),
+            "collided_share": worlds.collided.float().mean().item(),
+            # obstacles whose lane intent moved (rolls at steps 0 and 10), and the
+            # worlds whose lane-change target or obstacle lane moved in the timed steps
+            "lane_intent_share": (worlds.obs_des_y != w0.obs_des_y).float().mean().item(),
+            "retargeted_share": (worlds.lc_target != w1.lc_target).any(dim=1).float().mean().item(),
+            "obs_lane_changed_share": (worlds.obs_lane != w1.obs_lane).float().mean().item(),
+            "max_abs_a": u[..., 0].abs().max().item(), "max_abs_r": u[..., 1].abs().max().item(),
+            **card}
+    draws1 = torch.rand((Bt, 2), generator=torch.Generator().manual_seed(3), dtype=f64).to(dev)
+    line["profile"] = profile_step(lambda: episode.step_once(worlds, T + 1, draws1)[1]["u"].cpu(),
+                                   ("tree_qp_kernel",))
+    emit(line)
+    if not finite or launches != cfg.iters * T or by_dims.get(K.dims[0]) != launches:
+        raise AssertionError(f"overtake episode: finite {finite}, K1 launches {launches} "
+                             f"({by_dims}), expected {cfg.iters * T} at {K.dims[0]}")
+    if line["feasible_share"] < 0.5:
+        raise AssertionError(f"overtake episode: feasible share {line['feasible_share']:.3f}")
+    del worlds, traj, w0, w1
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_host_loop_phases(dev, card, K):
+    """The host environments with the single-tree controllers, card against
+    CPU in f64: ``HighwayEnv`` + ``BranchMPCProx`` (the overtake demo's N=8,
+    NB=2, IPM-8 with 2 correctors) for 10 steps, and ``HighwayMergeEnv`` +
+    ``BranchMPCCVaR`` (the merge demo's N=40, NB=1, ``use_S``, IPM-8 with 2
+    correctors) for 3 steps. Their solves run each tree's IPM in plain
+    PyTorch, so K1 is not launched."""
+    from belief_planning_tpu_torch.controllers.branch_mpc import BranchMPCProx
+    from belief_planning_tpu_torch.controllers.cvar_mpc import BranchMPCCVaR
+    from belief_planning_tpu_torch.envs.highway import HighwayEnv, highway_sim
+    from belief_planning_tpu_torch.envs.merge import HighwayMergeEnv, merge_ref_lines
+    from belief_planning_tpu_torch.models.policies import merge_policy_set
+    from belief_planning_tpu_torch.models.predictive import merge_model
+    from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig
+    from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
+
+    cons = overtake_cons()
+    pset, model, params = overtake_setup()
+    xRef = np.array([0.5, 1.8, 15.0, 0.0])
+    # the merge demo: the main road's model drives the controller, the ramp's
+    # model (its policies follow the ramp's heading) the ramp's vehicles
+    mmodel, mparams, mpset, mcons, ralpha, _ = cvar_config("cvar_merge")
+    ramp_pset = merge_policy_set(mcons, 20.0, merge_ref_lines(2, 1, 50, 300, 0)[1])
+    mmodels = [mmodel, merge_model(mcons, ramp_pset, N=mparams.N, dt=mmodel.dt)]
+    mpsets = (mpset.params, ramp_pset.params)
+    out, recs = {}, {}
+    K.launches = 0
+    for where in ("cuda", "cpu"):
+        dv = dev if where == "cuda" else "cpu"
+        mpc = BranchMPCProx(params, model, pset.params, ipm=QPIPMConfig(iters=8, gondzio=2),
+                            device=dv)
+        env = HighwayEnv(NV=2, mpc=mpc, cons=cons, lc_target=xRef, N_lane=4, seed=0)
+        t0 = time.perf_counter()
+        rec = highway_sim(env, HOST_QP_STEPS * model.dt)
+        qp_s = (time.perf_counter() - t0) / HOST_QP_STEPS
+        cmpc = BranchMPCCVaR(mparams, mmodel, mpset.params, ralpha=ralpha,
+                             ipm=CVaRIPMConfig(iters=8, gondzio=2), use_S=True, device=dv)
+        menv = HighwayMergeEnv(NV=2, N_lane=2, mpc=cmpc, models=mmodels,
+                               policy_param_sets=list(mpsets), merge_lane=1, merge_s=50,
+                               merge_R=300, merge_side=0, dt=mmodel.dt, cons=mcons)
+        t0 = time.perf_counter()
+        mrec = highway_sim(menv, HOST_MERGE_STEPS * mmodel.dt)
+        merge_s = (time.perf_counter() - t0) / HOST_MERGE_STEPS
+        recs[where] = (rec, mrec, env.lc_target.copy())
+        out[where] = {"highway_s_per_step": qp_s, "merge_s_per_step": merge_s}
+    (rc, mc, lcc), (rp, mp, lcp) = recs["cuda"], recs["cpu"]
+    diff = {"highway_states": float(np.abs(rc[0] - rp[0]).max()),
+            "highway_inputs": float(np.abs(rc[1] - rp[1]).max()),
+            "merge_states": float(np.abs(mc[0] - mp[0]).max()),
+            "merge_inputs": float(np.abs(mc[1] - mp[1]).max())}
+    same = {"highway_backups": rc[3] == rp[3], "lc_target": bool(np.array_equal(lcc, lcp)),
+            "merge_backups": mc[3] == mp[3]}
+    line = {"phase": "highway_host_loop", "dtype": "float64", "highway_steps": HOST_QP_STEPS,
+            "merge_steps": HOST_MERGE_STEPS, "N": params.N, "NB": params.NB,
+            "merge_N": mparams.N, "ipm_iters": 8, "s_per_step": out, "max_abs_diff": diff,
+            "equal": same, "highway_collision": rc[-1], "k1_launches": K.launches, "tol": 1e-7,
+            **card}
+    emit(line)
+    if not (max(diff.values()) < 1e-7 and all(same.values())):
+        raise AssertionError(f"host loops, card vs CPU: {diff}, equal {same}")
+    if not (np.isfinite(rc[0]).all() and np.isfinite(mc[0]).all()):
+        raise AssertionError("host loops: non-finite states")
+    return line
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1889,7 +2066,11 @@ def main() -> int:
     quad_entries = run_quadruped_phases(dev, card, K)
     run_merge_episode_phases(dev, card, K2)
 
-    # ---- 10. kernels line, card line, result ------------------------------------
+    # ---- 10. slice 9: the overtake ensemble on K1, the host loops -----------------
+    overtake_launches = run_overtake_episode_phases(dev, card, K)
+    run_host_loop_phases(dev, card, K)
+
+    # ---- 11. kernels line, card line, result ------------------------------------
     emit({"kernels": [{
         "name": "tree_qp_ipm_iter",
         "route": "cuda",
@@ -1902,6 +2083,8 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "launches_by_path": {"main_path": main_launches, "quadruped": quad_entries[0]["launches"],
+                             "overtake_episode": overtake_launches},
         "instantiations": [{"dims": list(K.dims[0]), "B": BENCH_B, "launches": main_launches,
                             "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                             "bound_by": bound_by, "max_abs_err": f32_err}, *quad_entries],

@@ -24,7 +24,9 @@ test_batched_merge_step_teacher_forced``), which pass with the BLAS limit.
 included) in one full run of ROADMAP.md's tier-1 command on an 8-core
 CPU machine (6 workers; its time limit raised so that the run reached its
 end: 1,754 s, 356 passed), tabulated by
-``python scripts/tier1_file_seconds.py <junit xml>``.
+``python scripts/tier1_file_seconds.py <junit xml>``; the two slice-9 files
+(``test_torch_batched_highway.py``, ``test_torch_host_envs.py``) from a
+later full run of the same command (839.6 s, 389 passed).
 
 This file imports neither jax nor torch.
 """
@@ -51,10 +53,12 @@ FILE_SECONDS = {
     "tests/test_viz.py": 117.6,
     "tests/test_robust_mpc.py": 110.8,
     "tests/test_torch_cvar_ipm.py": 92.4,
+    "tests/test_torch_host_envs.py": 88.3,
     "tests/test_torch_ipm_steps.py": 86.3,
     "tests/test_ops_models.py": 80.6,
     "tests/test_native_qp.py": 75.7,
     "tests/test_torch_qp_ipm.py": 75.5,
+    "tests/test_torch_batched_highway.py": 73.1,
     "tests/test_torch_cvar_refine.py": 68.8,
     "tests/test_torch_cvar_pl.py": 66.7,
     "tests/test_torch_cvar_mpc.py": 60.2,

@@ -188,6 +188,6 @@ def test_per_tree_step_pins_the_fused_step(case):
 
 def test_admm_solver_is_not_ported(case):
     model, params, _ = _port_model(case["params"], case["cons"], case["pset"])
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
         make_branch_mpc_step(model, params, "prox", solver="admm", device="cpu")
 
