@@ -10,7 +10,9 @@ Two steps share that preparation:
   restart;
 - :func:`make_branch_mpc_step` solves each tree with the independently
   written IPM ``solvers/tree_qp_ipm.qp_ipm_solve`` (the reference's
-  per-tree step under ``vmap``), the fused path's cross-check.
+  per-tree step under ``vmap``), the fused path's cross-check, or with the
+  OSQP-style ADMM ``solvers/tree_qp.admm_solve``, whose per-stage duals the
+  carry shifts and hands to the next solve.
 
 Both take ``policy_in_axes``: policy params shared by all trees, or with
 some leaves one value a tree (the closed-loop overtake retargets each
@@ -31,22 +33,32 @@ from torch.profiler import record_function
 from belief_planning_tpu_torch.models.policies import cast_params, lane_flags
 from belief_planning_tpu_torch.models.predictive import PredictiveModel
 from belief_planning_tpu_torch.solvers.layout import _from_bl, _to_bl, cost_to_bl
-from belief_planning_tpu_torch.solvers.tree_qp import assemble_stage_cost, build_stage_plan
+from belief_planning_tpu_torch.solvers.tree_qp import (
+    ADMMConfig,
+    admm_solve,
+    assemble_stage_cost,
+    build_stage_plan,
+)
 from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig, qp_ipm_solve
 from belief_planning_tpu_torch.solvers.tree_qp_pl import qp_ipm_solve_pl
-from belief_planning_tpu_torch.tree.engine import build_tree, shift_warm_start
+from belief_planning_tpu_torch.tree.engine import build_tree, shift_warm_start, warm_shift_indices
 from belief_planning_tpu_torch.tree.topology import TreeTopology, build_topology
 from belief_planning_tpu_torch.utils.config import BranchMPCParams
 from belief_planning_tpu_torch.utils.device import resolve_device
 
 
 class MPCCarry(NamedTuple):
-    """Warm-start state carried between receding-horizon steps (batch-leading)."""
+    """Warm-start state carried between receding-horizon steps (batch-leading).
+    The ADMM step also carries its per-stage duals, shifted with the inputs;
+    the IPM steps pass them through untouched."""
 
     u_lin: Any        # (Bt, totalu, d) previous solution inputs
     p: Any            # (Bt, nbr, m) previous branch probabilities (argmax shift)
     old_input: Any    # (Bt, d) previously applied input
     initialized: Any  # (Bt,) bool — False on the first solve
+    y1: Any = None    # (Bt, totalu, Nc) state-row duals
+    y2: Any = None    # (Bt, totalu, nFu) input-row duals
+    y3: Any = None    # (Bt, totalu, Nc) slack-positivity duals
 
 
 class SolveResult(NamedTuple):
@@ -66,18 +78,34 @@ def _cast(tree, dtype):
     return type(tree)(*(a.to(dtype) for a in tree))
 
 
-def _init_carry_fn(topo: TreeTopology, d: int, dev):
+def _init_carry_fn(topo: TreeTopology, d: int, dev, duals=None):
+    """``init_carry(batch, dtype)``; ``duals = (Nc, nFu)`` adds zero ADMM duals."""
     def init_carry(batch: int, dtype=torch.float32) -> MPCCarry:
         z = lambda *shape: torch.zeros((batch,) + shape, dtype=dtype, device=dev)
+        ys = {} if duals is None else dict(y1=z(topo.totalu, duals[0]),
+                                           y2=z(topo.totalu, duals[1]),
+                                           y3=z(topo.totalu, duals[0]))
         return MPCCarry(
             u_lin=z(topo.totalu, d), p=z(topo.n_branches, topo.m), old_input=z(d),
-            initialized=torch.zeros(batch, dtype=torch.bool, device=dev))
+            initialized=torch.zeros(batch, dtype=torch.bool, device=dev), **ys)
     return init_carry
 
 
-def _new_carry(u, p):
+def _new_carry(u, p, duals=(None, None, None)):
+    y1, y2, y3 = duals
     return MPCCarry(u_lin=u, p=p, old_input=u[:, 0].clone(),
-                    initialized=torch.ones(u.shape[0], dtype=torch.bool, device=u.device))
+                    initialized=torch.ones(u.shape[0], dtype=torch.bool, device=u.device),
+                    y1=y1, y2=y2, y3=y3)
+
+
+def _warm_duals(topo: TreeTopology, carry: MPCCarry):
+    """The carried ADMM duals shifted as the inputs are (``warm_shift_indices``),
+    zero on a tree's first solve."""
+    src = warm_shift_indices(topo, carry.p)
+    on = carry.initialized[:, None, None]
+    return tuple(torch.where(on, torch.gather(y, 1, src[..., None].expand(-1, -1, y.shape[-1])),
+                             torch.zeros_like(y))
+                 for y in (carry.y1, carry.y2, carry.y3))
 
 
 def _prep_qp(model, topo, params, variant, replicate_quirks, pd, dev, carry: MPCCarry, x, z,
@@ -106,28 +134,29 @@ def make_branch_mpc_step(
     prep_dtype=None,
     device=None,
     policy_in_axes=None,
+    admm: ADMMConfig = ADMMConfig(),
 ) -> Tuple[TreeTopology, Any, Any]:
     """Build ``(topo, init_carry, step)``: the reference's per-tree step,
     batched over trees.
 
     ``step(carrys, xs, zs, xRefs, policy_params) -> (carrys, SolveResult)``
     takes batch-leading tensors (``xs (Bt, n)``) and solves each tree's QP
-    with :func:`qp_ipm_solve` (IPM in the solve's dtype, the input's).
+    in the input's dtype with :func:`qp_ipm_solve` (``solver="ipm"``,
+    config ``ipm``) or :func:`admm_solve` (``solver="admm"``, config
+    ``admm``; the carry's duals, shifted, start it, and its ``gap`` is NaN).
     ``policy_in_axes``: ``None`` shares the policy params across trees; a
     prefix such as ``(None, None, LaneChangeParams(x_target=0))`` marks the
     leaves that carry a leading tree axis (``policies.lane_flags``).
-    ``solver="admm"`` (the reference's OSQP-equivalent ADMM) is not ported.
     ``prep_dtype``: optional wider dtype for the tree build and cost assembly
     only. ``device``: ``None`` = ``"cuda"`` (raises without CUDA); pass
     ``"cpu"`` to run on the CPU.
     """
-    if solver != "ipm":
-        raise NotImplementedError(
-            f"solver={solver!r}: only the IPM is ported; the tree-QP ADMM (admm_solve) and "
-            "its carried duals are ROADMAP.md Queue A item 5")
+    if solver not in ("ipm", "admm"):
+        raise ValueError(f"unknown solver {solver!r}")
     dev = resolve_device(device)
     topo = build_topology(params.N, params.NB, model.m, params.n, params.d)
     plan = build_stage_plan(topo)
+    duals = (params.Fx.shape[0] + 1, params.Fu.shape[0]) if solver == "admm" else None
 
     def step(carrys: MPCCarry, xs, zs, xRefs, policy_params):
         dt_in = xs.dtype
@@ -136,15 +165,24 @@ def make_branch_mpc_step(
             ts, cost = _prep_qp(model, topo, params, variant, replicate_quirks, pd, dev, carrys,
                                 xs, zs, xRefs, policy_params, policy_in_axes)
         ts, cost = _cast(ts, dt_in), _cast(cost, dt_in)
+        rows = (params.Fx, params.bx, params.Fu, params.bu, xs, carrys.old_input)
         with record_function("bp.solve"):
-            x_nodes, u, s, info = qp_ipm_solve(plan, cost, ts, params.Fx, params.bx, params.Fu,
-                                               params.bu, xs, carrys.old_input, ipm, device=dev)
+            if solver == "ipm":
+                x_nodes, u, s, info = qp_ipm_solve(plan, cost, ts, *rows, ipm, device=dev)
+                ys = (carrys.y1, carrys.y2, carrys.y3)
+                gap = info["gap"]
+            else:
+                x_nodes, u, s, st, info = admm_solve(plan, cost, ts, *rows, admm,
+                                                     warm_duals=_warm_duals(topo, carrys),
+                                                     device=dev)
+                ys = (st.y1, st.y2, st.y3)
+                gap = torch.full_like(info["prim_res"], float("nan"))
         res = SolveResult(xPred=x_nodes, uPred=u, slack=s, w=ts.w, p=ts.p, x_lin=ts.x_lin,
                           z=ts.z, prim_res=info["prim_res"],
-                          feasible=info["prim_res"] < feas_tol, gap=info["gap"])
-        return _new_carry(u, ts.p), res
+                          feasible=info["prim_res"] < feas_tol, gap=gap)
+        return _new_carry(u, ts.p, ys), res
 
-    return topo, _init_carry_fn(topo, params.d, dev), step
+    return topo, _init_carry_fn(topo, params.d, dev, duals), step
 
 
 def make_branch_mpc_batched_step(
@@ -222,7 +260,7 @@ def make_branch_mpc_batched_step(
         u = _from_bl(u_bl).to(dt_in)
         s = _from_bl(s_bl).to(dt_in)
         prim = info["prim_res"].to(dt_in)
-        new_carry = _new_carry(u, ts_b.p.to(dt_in))
+        new_carry = _new_carry(u, ts_b.p.to(dt_in), (carrys.y1, carrys.y2, carrys.y3))
         res = SolveResult(xPred=x_nodes, uPred=u, slack=s, w=ts_b.w, p=ts_b.p,
                           x_lin=ts_b.x_lin, z=ts_b.z, prim_res=prim,
                           feasible=prim < feas_tol, gap=info["gap"].to(dt_in))
@@ -239,7 +277,8 @@ class BranchMPC:
     ``dtype``.
 
     ``variant='branch'`` is the reference's live ``BranchMPC`` cost,
-    :class:`BranchMPCProx` the ``'prox'`` one. ``device``: ``None`` =
+    :class:`BranchMPCProx` the ``'prox'`` one. ``solver="admm"`` solves with
+    the ADMM of config ``admm`` (a keyword). ``device``: ``None`` =
     ``"cuda"``; pass ``"cpu"`` to run on the CPU.
     """
 
@@ -247,7 +286,8 @@ class BranchMPC:
 
     def __init__(self, mpcParameters, predictiveModel: PredictiveModel, policy_params,
                  replicate_quirks: bool = True, dtype=torch.float64, solver: str = "ipm",
-                 ipm: QPIPMConfig = QPIPMConfig(), prep_dtype=None, device=None):
+                 ipm: QPIPMConfig = QPIPMConfig(), prep_dtype=None, device=None,
+                 admm: ADMMConfig = ADMMConfig()):
         self.params = mpcParameters
         self.model = predictiveModel
         self.policy_params = policy_params
@@ -255,7 +295,7 @@ class BranchMPC:
         self.device = resolve_device(device)
         self.topo, self._init_carry, self._step = make_branch_mpc_step(
             predictiveModel, mpcParameters, self.variant, replicate_quirks, solver=solver,
-            ipm=ipm, prep_dtype=prep_dtype, device=self.device)
+            ipm=ipm, prep_dtype=prep_dtype, device=self.device, admm=admm)
         self.carry = self._init_carry(1, dtype)
         self.N, self.n, self.d = mpcParameters.N, mpcParameters.n, mpcParameters.d
         self.xPred = None

@@ -1,15 +1,17 @@
 """Carry parameters over from the JAX package's objects to this package's.
 
-The JAX package's ``BranchMPCParams`` / ``BranchConstants`` /
-``QuadConstants`` / ``CVaRIPMConfig`` / ``CVaRConfig`` hold numpy arrays,
-floats and ints, its ``TreeState`` holds arrays (numpy after ``np.asarray``),
-and its policy params are NamedTuples (``MaintainParams``,
+The JAX package's ``BranchMPCParams`` / ``MPCParams`` / ``BranchConstants`` /
+``QuadConstants`` / ``HMMConstants`` / ``CVaRIPMConfig`` / ``CVaRConfig`` /
+``ADMMConfig`` hold numpy arrays, floats and ints, its ``TreeState`` and
+``ADMMState`` hold arrays (numpy after ``np.asarray``), and its policy
+params are NamedTuples (``MaintainParams``,
 ``MaintainTrackVParams``, ``BrakeParams``, ``LaneChangeParams``,
 ``ForwardParams``) of arrays, some with a reference line (``RefLine``) in
 ``psiref``, or ``None`` (the quadruped's stop policy). Its overtake worlds
 (``envs.batched_highway.WorldState``) and the host environments' vehicles
 (``envs.highway.Vehicle``) convert too, so that both packages start a
-closed loop from one state. These functions read them by field name (this
+closed loop from one state, and its ``HMMPredictiveModel`` with its policy
+tuple. These functions read them by field name (this
 package imports nothing of the JAX package) and return this package's
 equivalents, so both packages compute from identical numbers.
 """
@@ -24,6 +26,8 @@ import torch
 from belief_planning_tpu_torch.controllers.branch_mpc import MPCCarry
 from belief_planning_tpu_torch.envs.batched_highway import WorldState
 from belief_planning_tpu_torch.envs.highway import Vehicle
+from belief_planning_tpu_torch.models import policies as pol
+from belief_planning_tpu_torch.models.hmm import HMMPredictiveModel
 from belief_planning_tpu_torch.models.policies import (
     BrakeParams,
     ForwardParams,
@@ -34,8 +38,15 @@ from belief_planning_tpu_torch.models.policies import (
 )
 from belief_planning_tpu_torch.solvers.cvar import CVaRConfig
 from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig
+from belief_planning_tpu_torch.solvers.tree_qp import ADMMConfig, ADMMState
 from belief_planning_tpu_torch.tree.engine import TreeState
-from belief_planning_tpu_torch.utils.config import BranchConstants, BranchMPCParams, QuadConstants
+from belief_planning_tpu_torch.utils.config import (
+    BranchConstants,
+    BranchMPCParams,
+    HMMConstants,
+    MPCParams,
+    QuadConstants,
+)
 
 _POLICY_PARAMS = {
     "MaintainParams": MaintainParams,
@@ -44,23 +55,59 @@ _POLICY_PARAMS = {
     "LaneChangeParams": LaneChangeParams,
     "ForwardParams": ForwardParams,
 }
-_CONSTANTS = {"BranchConstants": BranchConstants, "QuadConstants": QuadConstants}
+_CONSTANTS = {"BranchConstants": BranchConstants, "QuadConstants": QuadConstants,
+              "HMMConstants": HMMConstants}
+_PARAMS = {"BranchMPCParams": BranchMPCParams, "MPCParams": MPCParams}
+# the policy functions by name (the HMM model carries its functions)
+_POLICY_FNS = {name: getattr(pol, name) for name in (
+    "maintain", "maintain_track_v", "brake", "lane_change", "quad_forward", "quad_stop")}
 
 
 def convert_constants(cons):
-    """A ``BranchConstants``- or ``QuadConstants``-like dataclass → this
-    package's class of the same name."""
+    """A ``BranchConstants``-, ``QuadConstants``- or ``HMMConstants``-like
+    dataclass → this package's class of the same name."""
     cls = _CONSTANTS[type(cons).__name__]
     return cls(**{f.name: float(getattr(cons, f.name)) for f in dataclasses.fields(cls)})
 
 
-def convert_mpc_params(params) -> BranchMPCParams:
-    """A ``BranchMPCParams``-like dataclass → this package's (numpy) params."""
+def convert_hmm_constants(cons) -> HMMConstants:
+    """An ``HMMConstants``-like dataclass → this package's."""
+    return convert_constants(cons)
+
+
+def convert_mpc_params(params):
+    """A ``BranchMPCParams``- or ``MPCParams``-like dataclass → this
+    package's class of the same name (numpy params)."""
+    cls = _PARAMS[type(params).__name__]
     kw = {}
-    for f in dataclasses.fields(BranchMPCParams):
+    for f in dataclasses.fields(cls):
         v = getattr(params, f.name)
         kw[f.name] = np.array(v, dtype=np.float64) if isinstance(v, np.ndarray) else v
-    return BranchMPCParams(**kw)
+    return cls(**kw)
+
+
+def convert_admm_config(cfg) -> ADMMConfig:
+    """An ``ADMMConfig``-like dataclass → this package's ``ADMMConfig``."""
+    return ADMMConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(ADMMConfig)})
+
+
+def convert_admm_state(state, device, dtype=torch.float64) -> ADMMState:
+    """An ``ADMMState``-like NamedTuple (leading tree axis) → this package's,
+    field by field, so both packages can start from the same iterate and
+    warm duals."""
+    return ADMMState(*(torch.as_tensor(np.array(getattr(state, f)), dtype=dtype, device=device)
+                       for f in ADMMState._fields))
+
+
+def convert_hmm_model(model, device, dtype=torch.float64) -> HMMPredictiveModel:
+    """An ``HMMPredictiveModel``-like model → this package's: its sizes and
+    step, its constants, its policy functions (matched by name) and their
+    params (:func:`convert_policy_params`)."""
+    return HMMPredictiveModel(
+        nx=int(model.nx), d=int(model.d), M=int(model.M), m=int(model.m), dt=float(model.dt),
+        cons=convert_constants(model.cons),
+        policy_fns=tuple(_POLICY_FNS[fn.__name__] for fn in model.policy_fns),
+        policy_params=convert_policy_params(model.policy_params, device, dtype))
 
 
 def convert_cvar_ipm_config(cfg) -> CVaRIPMConfig:

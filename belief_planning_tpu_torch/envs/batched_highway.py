@@ -27,7 +27,7 @@ Two couplings share these closures: :func:`make_batched_overtake_fused`,
 the main path, one ``make_branch_mpc_batched_step`` call a world step (the
 fused IPM iteration, the CUDA kernel on the card), and
 :func:`make_batched_overtake`, one ``make_branch_mpc_step`` call (each
-tree's IPM in plain PyTorch), its cross-check.
+tree's IPM, or the tree-QP ADMM, in plain PyTorch), its cross-check.
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ from belief_planning_tpu_torch.models.policies import (
     maintain,
 )
 from belief_planning_tpu_torch.models.safety import lane_bdry_h, veh_col
+from belief_planning_tpu_torch.solvers.tree_qp import ADMMConfig
 from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
 from belief_planning_tpu_torch.utils.device import resolve_device
 
@@ -251,10 +252,11 @@ def make_batched_overtake_fused(cons, model, params, variant: str = "prox",
 
 def make_batched_overtake(cons, model, params, variant: str = "prox", N_lane: int = 4,
                           dtype=torch.float32, solver: str = "ipm",
-                          ipm: QPIPMConfig = QPIPMConfig(), device=None):
+                          ipm: QPIPMConfig = QPIPMConfig(), device=None,
+                          admm: ADMMConfig = ADMMConfig()):
     """The same worlds and step as :func:`make_batched_overtake_fused`, each
-    tree solved by :func:`make_branch_mpc_step` (``solver="ipm"``; the
-    reference's ADMM raises, ROADMAP.md Queue A item 5), with the same
-    arguments and API."""
+    tree solved by :func:`make_branch_mpc_step`: its IPM (``solver="ipm"``,
+    config ``ipm``) or its ADMM (``solver="admm"``, config ``admm``, the
+    duals carried in each world's controller carry), with the same API."""
     return _make_overtake(make_branch_mpc_step, cons, model, params, variant, ipm, N_lane,
-                          dtype, device, solver=solver)
+                          dtype, device, solver=solver, admm=admm)

@@ -28,12 +28,16 @@ def _abs(x):
     return torch.where(x >= 0, x, -x)
 
 
-def veh_col(x1, x2, size, alpha=1.0, clip=None):
+def veh_col(x1, x2, size, alpha=1.0, clip=None, normalize=False):
     """Smooth rectangle-collision margin between two vehicle states
     ``(..., ≥2)``: soft max of ``|ΔX|−size[0]`` and ``|ΔY|−size[1]``, each
+    divided by its size when ``normalize`` (the HMM path's margin), then
     clipped to ``±clip`` when it is given (the numeric path's 5)."""
     dx = _abs(x1[..., 0] - x2[..., 0]) - size[0]
     dy = _abs(x1[..., 1] - x2[..., 1]) - size[1]
+    if normalize:
+        dx = dx / size[0]
+        dy = dy / size[1]
     if clip is not None:
         dx = torch.clamp(dx, -clip, clip)
         dy = torch.clamp(dy, -clip, clip)

@@ -34,6 +34,12 @@ def softmax(x, gamma=1.0, axis=None):
     return _soft(x, gamma * x, axis)
 
 
+def softmin_pair(a, b, gamma=1.0):
+    """Two-argument softmin; ``a`` and ``b`` broadcast against each other."""
+    a, b = torch.broadcast_tensors(a, b)
+    return softmin(torch.stack([a, b], dim=0), gamma, axis=0)
+
+
 def softmax_pair(a, b, gamma=1.0):
     """Two-argument softmax; ``a`` and ``b`` broadcast against each other."""
     a, b = torch.broadcast_tensors(torch.as_tensor(a, dtype=b.dtype, device=b.device), b)

@@ -155,7 +155,7 @@ def cvar_ipm_solve(cplan: CVaRPlan, ts: TreeState, Q, R, Qslack, xRef, ralpha, F
         if getattr(cfg, name) != default:
             raise NotImplementedError(
                 f"CVaRIPMConfig.{name}={getattr(cfg, name)!r}: the reference's diagnostic "
-                "options are not ported yet (ROADMAP.md Queue A item 4b)")
+                "options are not ported yet (ROADMAP.md Queue A item 8)")
     dev = resolve_device(device)
     ts = TreeState(*(a.to(dev) for a in ts))
     plan = cplan.plan

@@ -1,5 +1,6 @@
-"""Tree QP data: the static per-level stage plan and the stage-cost assembly
-(the first part of the reference package's ``solvers/tree_qp.py``).
+"""The tree QP (the reference package's ``solvers/tree_qp.py``): the static
+per-level stage plan, the stage-cost assembly, the Riccati sweeps over the
+tree, and the OSQP-style ADMM around them (:func:`admm_solve`).
 
 Cost convention: ½-form ``½vᵀP̂v + q̂ᵀv`` with P̂ = 2·H_assembled, as the
 reference's "multiply by two because CVX considers 1/2" followed by OSQP's
@@ -16,6 +17,7 @@ Arrays carry a leading batch axis over trees.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Tuple
 
@@ -24,6 +26,7 @@ import torch
 
 from belief_planning_tpu_torch.tree.engine import TreeState
 from belief_planning_tpu_torch.tree.topology import TreeTopology
+from belief_planning_tpu_torch.utils.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -87,21 +90,24 @@ def assemble_stage_cost(topo: TreeTopology, ts: TreeState, Q, R, Qf, dR, Qslack,
                         xRef, OldInput, variant: str = "prox",
                         replicate_quirks: bool = True) -> StageCost:
     """Per-stage cost arrays equivalent to the reference ``buildCost``:
-    ``variant="prox"`` (``BranchMPCProx``: dQ = 3Q, the input-rate coupling)
-    or ``"branch"`` (the live ``BranchMPC``: dQ = Q/2, the leaf branch's last
-    xRef term through Qf, no rate coupling and no terminal linear row).
-    ``xRef (Bt, n)``, ``OldInput (Bt, d)``."""
-    if variant not in ("prox", "branch"):
-        raise NotImplementedError(
-            f"variant {variant!r}: only 'prox' and 'branch' are ported; 'robust' (the "
-            "robust controller's cost) is ROADMAP.md Queue A item 5")
-    prox = variant == "prox"
+    ``variant="prox"`` (``BranchMPCProx``: dQ = 3Q, the input-rate coupling),
+    ``"branch"`` (the live ``BranchMPC``: dQ = Q/2, the leaf branch's last
+    xRef term through Qf, no rate coupling and no terminal linear row) or
+    ``"robust"`` (the single-trajectory controllers': the prox assembly with
+    dQ = 0 and without the quirks). ``xRef (Bt, n)``, ``OldInput (Bt, d)``."""
+    if variant not in ("prox", "branch", "robust"):
+        raise ValueError(f"unknown cost variant {variant!r}")
     n, d = topo.n, topo.d
     dtype, dev = ts.x_lin.dtype, ts.x_lin.device
     Bt = ts.x_lin.shape[0]
     as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
     Q, R, Qf, dR, Qslack = map(as_t, (Q, R, Qf, dR, Qslack))
-    dQ = Q * (3.0 if prox else 0.5)
+    if variant == "robust":
+        dQ = Q * 0.0
+        variant, replicate_quirks = "prox", False
+    else:
+        dQ = Q * (3.0 if variant == "prox" else 0.5)
+    prox = variant == "prox"
     dRm = torch.diag(dR)
 
     ub = np.asarray(topo.unode_branch)
@@ -380,3 +386,229 @@ def tree_lqr_forward(plan: StagePlan, fac: Factors, kff, x0, u_old, affine: bool
         else:
             x_nodes[..., _idx(plan.leaf_term_idx, dev), :] = xi[..., :n]
     return x_nodes, u_all
+
+
+# ---------------------------------------------------------------------------
+# OSQP-style ADMM around the tree-LQR solve
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ADMMConfig:
+    """Uniform row scaling with α=1.6 over-relaxation and an active-set
+    polish phase (the reference's tuning on the overtake against its
+    oracle: applied inputs to ~1e-7 at 200 + 30 iterations)."""
+
+    rho: float = 5.0
+    sigma: float = 1e-6
+    alpha: float = 1.6            # over-relaxation (OSQP default)
+    iters: int = 200
+    rho_update_every: int = 50    # 0 = fixed rho; else adapt every k iters
+    rho_min: float = 1e-3
+    rho_max: float = 1e4
+    row_scaling: str = "uniform"  # "uniform" | "weight" | "weight_rownorm"
+    polish_iters: int = 30        # extra iterations with boosted rho on active rows
+    polish_boost: float = 200.0
+    act_tol: float = 1e-6
+
+
+class ADMMState(NamedTuple):
+    """The ADMM iterate of a batch of trees (leading axis ``Bt``)."""
+
+    x: Any         # (Bt, totalx, n)
+    u: Any         # (Bt, totalu, d)
+    s: Any         # (Bt, totalu, Nc) slacks
+    z1: Any        # (Bt, totalu, Nc) state-row splits
+    z2: Any        # (Bt, totalu, nFu) input-row splits
+    z3: Any        # (Bt, totalu, Nc) slack-positivity splits
+    y1: Any        # duals of z1, z2, z3
+    y2: Any
+    y3: Any
+    theta: Any     # (Bt,) multiplier on the per-row rho bases
+
+
+def _f32_precision(fn):
+    """Run ``fn`` with full-precision f32 matmuls (no TF32), as the
+    reference forces them for its iterative solve; the previous setting is
+    restored after."""
+    @functools.wraps(fn)
+    def wrapped(*a, **k):
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("highest")
+        try:
+            return fn(*a, **k)
+        finally:
+            torch.set_float32_matmul_precision(prev)
+    return wrapped
+
+
+def _per_tree_max(*ts):
+    """The largest entry of each tree over all of ``ts`` ``(Bt, ...)``: ``(Bt,)``."""
+    return torch.stack([t.reshape(t.shape[0], -1).amax(1) for t in ts], dim=0).amax(0)
+
+
+@_f32_precision
+def admm_solve(plan: StagePlan, cost: StageCost, ts: TreeState, Fx, bx, Fu, bu, x0, OldInput,
+               cfg: ADMMConfig = ADMMConfig(), init: ADMMState = None, w_stage=None,
+               Fxc_override=None, b1_override=None, warm_duals=None, device=None):
+    """Solve the tree QP by ADMM for a batch of trees. Returns ``(x_nodes, u,
+    s, state, info)``, ``info`` with ``prim_res (Bt,)`` and ``rho`` (the final
+    θ, ``(Bt,)``).
+
+    Rows: state rows R1 ``[−dh; Fx]·x − s ≤ [h0; bx]`` (or the dense
+    ``Fxc_override (Bt, totalu, Nc, n)`` ≤ ``b1_override (Bt, totalu, Nc)``),
+    input rows R2 ``Fu·u ≤ bu``, slack positivity R3. Each row's penalty is a
+    base (``cfg.row_scaling``: uniform, the branch weight ``w_stage (Bt,
+    totalu)``, or that over the row norm) times ρ times a per-tree θ that
+    ``rho_update_every > 0`` adapts from each tree's own residual ratio; the
+    polish phase boosts ρ on each tree's detected active set. The dynamics
+    are eliminated by the tree Riccati sweeps, refactored whenever ρ
+    changes. ``init`` resumes from a state; ``warm_duals = (y1, y2, y3)``
+    starts the duals there. ``device``: ``None`` = ``"cuda"``; pass
+    ``"cpu"`` to run on the CPU. f32 matmuls run at full precision."""
+    dev = resolve_device(device)
+    ts = TreeState(*(a.to(dev) for a in ts))
+    cost = StageCost(*(torch.as_tensor(c).to(dev) for c in cost))
+    topo = plan.topo
+    n, d = topo.n, topo.d
+    dtype = ts.x_lin.dtype
+    Bt = ts.x_lin.shape[0]
+    totalu = topo.totalu
+    ein = torch.einsum
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    Fx, bx, Fu, bu = map(as_t, (Fx, bx, Fu, bu))
+    nFx, nFu = Fx.shape[0], Fu.shape[0]
+
+    if Fxc_override is not None:
+        Fxc = as_t(Fxc_override)
+        b1 = as_t(b1_override)
+    else:
+        Fxc = torch.cat([-ts.dh[..., None, :], Fx.expand(Bt, totalu, nFx, n)], dim=-2)
+        b1 = torch.cat([ts.h0[..., None], bx.expand(Bt, totalu, nFx)], dim=-1)
+    Nc = Fxc.shape[-2]
+
+    sigma = cfg.sigma
+    cx = _idx(topo.cnode_x, dev)
+    leaf_term = _idx(plan.leaf_term_idx, dev)
+    if w_stage is None:
+        w_stage = ts.w[:, _idx(topo.unode_branch, dev)]
+    w_stage = as_t(w_stage)
+
+    if cfg.row_scaling == "uniform":
+        base1 = torch.ones((Bt, totalu, Nc), dtype=dtype, device=dev)
+        base2 = torch.ones((Bt, totalu, nFu), dtype=dtype, device=dev)
+    elif cfg.row_scaling == "weight":
+        base1 = w_stage[..., None].expand(Bt, totalu, Nc)
+        base2 = w_stage[..., None].expand(Bt, totalu, nFu)
+    elif cfg.row_scaling == "weight_rownorm":
+        base1 = w_stage[..., None] / torch.clamp(torch.sum(Fxc * Fxc, dim=-1), min=1e-3)
+        base2 = w_stage[..., None] / torch.clamp(torch.sum(Fu * Fu, dim=1), min=1e-3)
+    else:
+        raise ValueError(f"unknown row_scaling {cfg.row_scaling!r}")
+    base1 = base1 * cfg.rho
+    base2 = base2 * cfg.rho
+    base3 = base1
+    slack_quad = cost.slack_quad.reshape(Bt, 1, 1)
+    slack_lin = cost.slack_lin[..., None]
+    eye_n = torch.eye(n, dtype=dtype, device=dev)
+    eye_d = torch.eye(d, dtype=dtype, device=dev)
+
+    def make_factors(theta, boost1=None, boost2=None, boost3=None):
+        th = theta.reshape(Bt, 1, 1)
+        rho1 = base1 * th if boost1 is None else base1 * th * boost1
+        rho2 = base2 * th if boost2 is None else base2 * th * boost2
+        rho3 = base3 * th if boost3 is None else base3 * th * boost3
+        kappa = slack_quad + sigma + rho1 + rho3
+        coef = rho1 - rho1 * rho1 / kappa
+        Qx2 = cost.Qx2 + ein("tbr,tbri,tbrj->tbij", coef, Fxc, Fxc) + sigma * eye_n
+        Ru2 = cost.Ru2 + ein("tbr,ri,rj->tbij", rho2, Fu, Fu) + sigma * eye_d
+        Pterm2 = cost.Pterm2 + sigma * eye_n
+        fac = tree_lqr_factor(plan, cost._replace(Qx2=Qx2, Ru2=Ru2, Pterm2=Pterm2), ts)
+        return fac, (rho1, rho2, rho3, kappa)
+
+    theta0 = torch.ones(Bt, dtype=dtype, device=dev)
+    fac, rhos = make_factors(theta0)
+
+    if init is None:
+        x_init, u_init = ts.x_lin, ts.u_lin
+        s_init = torch.zeros((Bt, totalu, Nc), dtype=dtype, device=dev)
+        z1 = ein("tbrn,tbn->tbr", Fxc, x_init[:, cx]) - s_init
+        z2 = ein("rn,tbn->tbr", Fu, u_init)
+        if warm_duals is not None:
+            y1_0, y2_0, y3_0 = (as_t(y) for y in warm_duals)
+        else:
+            y1_0, y2_0, y3_0 = torch.zeros_like(z1), torch.zeros_like(z2), torch.zeros_like(s_init)
+        state = ADMMState(x=x_init, u=u_init, s=s_init, z1=torch.minimum(z1, b1),
+                          z2=torch.minimum(z2, bu), z3=torch.zeros_like(s_init),
+                          y1=y1_0, y2=y2_0, y3=y3_0, theta=theta0)
+    else:
+        state = ADMMState(*(as_t(a) for a in init))
+
+    def iteration(st: ADMMState, fac, rhos):
+        rho1, rho2, rho3, kappa = rhos
+        w1 = st.z1 - st.y1 / rho1
+        w2 = st.z2 - st.y2 / rho2
+        w3 = st.z3 - st.y3 / rho3
+        beta = rho1 * w1 - rho3 * w3 - sigma * st.s + slack_lin
+        gamma = ein("tbrn,tbr->tbn", Fxc, (rho1 / kappa) * beta - rho1 * w1)
+        qx_eff = cost.qx + gamma - sigma * st.x[:, cx]
+        qu_eff = cost.qu - sigma * st.u - ein("rn,tbr->tbn", Fu, rho2 * w2)
+        qterm_eff = cost.qterm - sigma * st.x[:, leaf_term]
+        kff = tree_lqr_linear(plan, fac, qx_eff, qu_eff, qterm_eff)
+        x_nodes, u = tree_lqr_forward(plan, fac, kff, x0, OldInput)
+        fxn = ein("tbrn,tbn->tbr", Fxc, x_nodes[:, cx])
+        s = (rho1 * fxn - beta) / kappa
+        y1t = fxn - s
+        y2t = ein("rn,tbn->tbr", Fu, u)
+        y3t = s
+        a = cfg.alpha
+        y1h = a * y1t + (1 - a) * st.z1
+        y2h = a * y2t + (1 - a) * st.z2
+        y3h = a * y3t + (1 - a) * st.z3
+        z1 = torch.minimum(y1h + st.y1 / rho1, b1)
+        z2 = torch.minimum(y2h + st.y2 / rho2, bu)
+        z3 = torch.clamp(y3h + st.y3 / rho3, min=0.0)
+        y1 = st.y1 + rho1 * (y1h - z1)
+        y2 = st.y2 + rho2 * (y2h - z2)
+        y3 = st.y3 + rho3 * (y3h - z3)
+        return ADMMState(x_nodes, u, s, z1, z2, z3, y1, y2, y3, st.theta), (y1t, y2t, y3t)
+
+    x0 = as_t(x0)
+    OldInput = as_t(OldInput)
+    k = cfg.rho_update_every
+    if k and k > 0:
+        # chunks of k iterations, each followed by one more whose state is
+        # kept and whose residuals set each tree's θ
+        for _ in range(max(1, cfg.iters // k)):
+            for _ in range(k):
+                state, _ = iteration(state, fac, rhos)
+            st2, (y1t, y2t, y3t) = iteration(state, fac, rhos)
+            rp = _per_tree_max(torch.abs(y1t - st2.z1), torch.abs(y2t - st2.z2),
+                               torch.abs(y3t - st2.z3))
+            dz1, dz2, dz3 = st2.z1 - state.z1, st2.z2 - state.z2, st2.z3 - state.z3
+            rd_x = ein("tbrn,tbr->tbn", Fxc, rhos[0] * dz1)
+            rd_u = ein("rn,tbr->tbn", Fu, rhos[1] * dz2)
+            rd = _per_tree_max(torch.abs(rd_x), torch.abs(rd_u),
+                               torch.abs(rhos[0] * dz1 - rhos[2] * dz3))
+            new_theta = torch.clamp(state.theta * torch.sqrt((rp + 1e-12) / (rd + 1e-12)),
+                                    cfg.rho_min, cfg.rho_max)
+            state = st2._replace(theta=new_theta)
+            fac, rhos = make_factors(new_theta)
+    else:
+        for _ in range(cfg.iters):
+            state, _ = iteration(state, fac, rhos)
+
+    if cfg.polish_iters and cfg.polish_iters > 0:
+        # boost ρ on each tree's detected active set (still exact ADMM, so a
+        # wrong guess costs iterations, not correctness)
+        boost = lambda act: 1.0 + (cfg.polish_boost - 1.0) * act.to(dtype)
+        fac, rhos = make_factors(state.theta, boost(state.y1 > cfg.act_tol),
+                                 boost(state.y2 > cfg.act_tol), boost(state.y3 < -cfg.act_tol))
+        for _ in range(cfg.polish_iters):
+            state, _ = iteration(state, fac, rhos)
+
+    state_f, (y1t, y2t, y3t) = iteration(state, fac, rhos)
+    rp = _per_tree_max(torch.clamp(y1t - b1, min=0.0), torch.clamp(y2t - bu, min=0.0),
+                       torch.clamp(-y3t, min=0.0))
+    info = {"prim_res": rp, "rho": state_f.theta}
+    return state_f.x, state_f.u, state_f.s, state_f, info

@@ -1,11 +1,13 @@
 """Configuration dataclasses (numpy), copied from the reference package's
 ``utils/config.py``.
 
-``BranchConstants`` and ``QuadConstants`` hold the static scenario constants
-of the highway and the quadruped; ``BranchMPCParams``
-the controller's weights and constraint polytopes. Reference behaviours kept:
-``Qf`` defaults to ``Q``; ``Qslack = [quadratic, linear]`` as the reference uses
-it; a ``bx`` wrapped in a 1-tuple is unwrapped.
+``BranchConstants``, ``QuadConstants`` and ``HMMConstants`` hold the static
+scenario constants of the highway, the quadruped and the HMM belief model;
+``BranchMPCParams`` and ``MPCParams`` (the HMM controller's) the controllers'
+weights and constraint polytopes. Reference behaviours kept:
+``BranchMPCParams.Qf`` defaults to ``Q`` and ``MPCParams.Qf`` to zeros;
+``Qslack = [quadratic, linear]`` as the reference uses it; a ``bx`` wrapped in
+a 1-tuple is unwrapped.
 """
 
 from __future__ import annotations
@@ -59,10 +61,57 @@ class QuadConstants:
     col_alpha: float = 5.0
 
 
+@dataclass(frozen=True)
+class HMMConstants:
+    """Constants of the HMM belief model (its transition temperature ``s1``,
+    observation weight ``s2``/``c2``, transition diagonal, CBF rate, input
+    bounds, road bounds, vehicle size and collision sharpness)."""
+
+    s1: float = 2.0
+    s2: float = 3.0
+    c2: float = 0.5
+    tran_diag: float = 0.3
+    alpha: float = 1.0
+    R: float = 1.2
+    am: float = 6.0
+    rm: float = 0.3
+    J_c: float = 20.0
+    s_c: float = 1.0
+    ylb: float = 0.0
+    yub: float = 7.2
+    L: float = 4.0
+    W: float = 2.4
+    col_alpha: float = 5.0
+    Kpsi: float = 0.1
+
+
 def _as_array(x) -> Optional[np.ndarray]:
     if x is None:
         return None
     return np.asarray(np.squeeze(np.asarray(x, dtype=np.float64)))
+
+
+def _normalize(p, qf_default):
+    """Arrays as f64 numpy, ``bx`` unwrapped from the reference's 1-tuple,
+    ``Qf = qf_default(Q)`` when unset, zero ``dR`` and ``xRef`` when unset."""
+    if isinstance(p.bx, tuple):  # reference trailing-comma quirk
+        p.bx = p.bx[0]
+    for name in ("Q", "R", "Qf", "dR", "Qslack", "bx", "bu", "xRef"):
+        setattr(p, name, _as_array(getattr(p, name)))
+    for name in ("Fx", "Fu"):
+        v = getattr(p, name)
+        if v is not None:
+            setattr(p, name, np.asarray(v, dtype=np.float64))
+    if p.Qf is None and p.Q is not None:
+        p.Qf = qf_default(p.Q)
+    if p.dR is None:
+        p.dR = np.zeros(p.d)
+    if p.xRef is None:
+        p.xRef = np.zeros(p.n)
+    if p.bx is not None:
+        p.bx = np.atleast_1d(p.bx)
+    if p.bu is not None:
+        p.bu = np.atleast_1d(p.bu)
 
 
 @dataclass
@@ -93,24 +142,40 @@ class BranchMPCParams:
     timeVarying: bool = False
 
     def __post_init__(self):
-        if isinstance(self.bx, tuple):  # reference trailing-comma quirk
-            self.bx = self.bx[0]
-        for name in ("Q", "R", "Qf", "dR", "Qslack", "bx", "bu", "xRef"):
-            setattr(self, name, _as_array(getattr(self, name)))
-        for name in ("Fx", "Fu"):
-            v = getattr(self, name)
-            if v is not None:
-                setattr(self, name, np.asarray(v, dtype=np.float64))
-        if self.Qf is None and self.Q is not None:
-            self.Qf = np.array(self.Q)
-        if self.dR is None:
-            self.dR = np.zeros(self.d)
-        if self.xRef is None:
-            self.xRef = np.zeros(self.n)
-        if self.bx is not None:
-            self.bx = np.atleast_1d(self.bx)
-        if self.bu is not None:
-            self.bu = np.atleast_1d(self.bu)
+        _normalize(self, qf_default=np.array)
 
     def replace(self, **kw) -> "BranchMPCParams":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass
+class MPCParams:
+    """The HMM belief controller's parameters over the belief-augmented
+    state (``n = nx + M·m``). ``Qf`` defaults to zeros, unlike
+    :class:`BranchMPCParams`."""
+
+    n: int = 4
+    d: int = 2
+    N: int = 10
+    M: int = 1               # number of uncontrolled agents
+    m: int = 2               # number of backup policies
+
+    Q: np.ndarray = None
+    R: np.ndarray = None
+    Qf: np.ndarray = None
+    dR: np.ndarray = None
+    Qslack: np.ndarray = None
+    Fx: np.ndarray = None
+    bx: np.ndarray = None
+    Fu: np.ndarray = None
+    bu: np.ndarray = None
+    xRef: np.ndarray = None
+
+    slacks: bool = True
+    timeVarying: bool = False
+
+    def __post_init__(self):
+        _normalize(self, qf_default=np.zeros_like)
+
+    def replace(self, **kw) -> "MPCParams":
         return dataclasses.replace(self, **kw)

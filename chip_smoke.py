@@ -63,7 +63,7 @@ Phases, one JSON line each:
    batched 400-iteration solve of the CVaR overtake at B=32768 in f64,
    where the reference converges: solve ms, prim_res, J, exactly iters + 2
    launches, all on the team path; K3's share of device time over a
-   profiled 100-iteration solve);
+   profiled 20-iteration solve);
    ``admm_vs_cpu`` (the same in f64 at B=64, card against CPU: |Δu| held
    at 1e-7 after 30 and after 100 iterations, |Δx| reported);
 7. the K1 profile (the phase kernels of ``csrc/tree_qp_ipm_iter.cu``):
@@ -82,7 +82,7 @@ Phases, one JSON line each:
    sizes: ms per launch, TFLOP/s, the bound and the share of it per mode,
    the probe's verdict line, with every launch counted); ``qp_ipm_main_path`` (``make_branch_mpc_step`` on the QP
    overtake, ``QPIPMConfig()`` defaults, f32, B=32768: a cold step, then a
-   timed warm step and a profiled one); ``qp_ipm_pin`` (K1 in f64 at
+   timed warm step, and a warm step profiled over 8 iterations); ``qp_ipm_pin`` (K1 in f64 at
    B=1024 against the per-tree step over two warm-carried steps at the main
    path's IPM-8 with 2 correctors, u < 1e-7, x < 1e-6); ``cvar_ipm_main_path`` (``make_cvar_mpc_step``, IPM-80, f32,
    B=8192, both CVaR configurations: solves/s, gap and J p50; the
@@ -118,7 +118,31 @@ Phases, one JSON line each:
     ``BranchMPCProx`` for 10 steps and ``HighwayMergeEnv`` +
     ``BranchMPCCVaR`` for 3, the demos' widths at IPM-8, card against CPU in
     f64: states and inputs < 1e-7, equal backup choices; seconds a step);
-11. the ``kernels`` line (all five kernels; K1's with an entry for each
+11. slice 10, the tree-QP ADMM, the robust and HMM controllers and the
+    quadruped's host loop, all plain PyTorch, each phase alone, its card
+    side then its CPU reference (each phase sets every kernel's launch
+    counter to 0 just before its card side and fails unless it stays 0):
+    ``tree_admm_vs_cpu`` (``admm_solve`` on the overtake tree, f64, B=8,
+    at 2 iterations |Δu|, |Δx| < 1e-10 and at the entry's config, ρ=5, 50
+    iterations + 10 polish, |Δu| < 1e-7); ``admm_main_path``
+    (``make_branch_mpc_step(solver="admm")`` at the entry's config, f32,
+    B=4096: a cold step, 3 warm steps with the duals carried, a profiled
+    one, solves/s, prim_res, the feasible share, f32 against f64 on the
+    card, the card's f64 against the CPU on 64 trees < 1e-7; then
+    ``entry()``'s step on the card, finite); ``hmm_main_path``
+    (``make_hmm_mpc_batched_step`` at ``scripts/bench_configs.py:235-290``,
+    M=1, m=2, N=6, IPM-8 with 2 correctors, f32, B=4096: solves/s over 5
+    warm steps, the feasible share, f32 against f64, a profiled step);
+    ``hmm_vs_cpu`` (f64, B=8, two steps, |Δu| < 1e-9); ``hmm_host_loop``
+    (``HMMHighwayEnv`` + ``HMMMPC``, NV=3, M=2, N=5, 3 steps: states <
+    1e-7, beliefs < 1e-9, backups and the generator's next draw equal);
+    ``quad_host_loop`` (``QuadEnv`` + ``BranchMPCProx``, N=25, NB=2, 3 steps
+    in each ``ref_mode``: states < 1e-7, backups equal);
+    ``robust_host_loop`` (``RobustMPC``, N=8, NB=2, f64: the closed loop of
+    5 IPM-100 steps and 2 ``ADMMConfig()`` steps on the CPU, each step
+    solved again on the card from the same state and carry, |Δu| < 1e-7),
+    and ``slice10_seconds``;
+12. the ``kernels`` line (all five kernels; K1's with an entry for each
     instantiation and its main-path launches by path), the ``nvidia-smi``
     line, and the result line.
 
@@ -522,8 +546,11 @@ def profile_step(run, kernels=()):
         t0 = time.perf_counter()
         run()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    t_read = time.perf_counter()
+    events = prof.events()
+    read_s = time.perf_counter() - t_read
     on_device, spans = {}, {}
-    for e in prof.events():
+    for e in events:
         ms = e.time_range.elapsed_us() / 1e3
         if e.name.startswith("bp."):
             kind = "cpu" if e.device_type == DeviceType.CPU else "device"
@@ -533,7 +560,7 @@ def profile_step(run, kernels=()):
             on_device[e.name] = (n_ + 1, t_ + ms)
     device_ms = sum(t for _, t in on_device.values())
     top = sorted(on_device.items(), key=lambda kv: -kv[1][1])[:5]
-    out = {"wall_ms_profiled": wall_ms, "device_busy_ms": device_ms,
+    out = {"wall_ms_profiled": wall_ms, "trace_read_s": read_s, "device_busy_ms": device_ms,
            "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
            "device_ops": sum(n_ for n_, _ in on_device.values()), "spans": spans,
            "top_device_ms": [[k[:70], t, n_] for k, (n_, t) in top]}
@@ -791,10 +818,12 @@ SOC_K = 2 + n + d          # cone row length of the CVaR ADMM: (1+t, x rows, u r
 ADMM_ITERS = 400
 ADMM_EARLY_ITERS = 30
 # the shorter ADMM solves that keep the script inside its time: the projection
-# check on the main path's rows and the profile run 30 and 100 iterations of
-# the 400-iteration solve, the card-vs-CPU check 30 and 100
+# check on the main path's rows and the profile run 30 and 20 iterations of
+# the 400-iteration solve (the profiler's trace of a launch-bound solve takes
+# longer to read than the solve), the card-vs-CPU check 30 and 100
 ADMM_TAP_ITERS = 30
-ADMM_PROFILE_ITERS = 100
+ADMM_PROFILE_ITERS = 20
+ADMM_LATE_ITERS = 100
 
 
 def soc_test_rows(rows, dtype, dev, seed=0):
@@ -1002,7 +1031,7 @@ def run_admm_phases(dev, card, K3):
     cpu = torch.device("cpu")
     _, args_cpu = admm_problem(cpu, 64, f64)
     res = {}
-    for iters in (ADMM_EARLY_ITERS, ADMM_PROFILE_ITERS):
+    for iters in (ADMM_EARLY_ITERS, ADMM_LATE_ITERS):
         c = admm_cfg(iters)
         on_card = cvar_solve(*args_cpu, cfg=c)          # moves the CPU-built inputs to the card
         on_cpu = cvar_solve(*args_cpu, cfg=c, device="cpu")
@@ -1278,8 +1307,11 @@ def run_per_tree_phases(dev, card, K, K2):
             "prim_res_p50": float(res.prim_res.median()), "gap_p50": float(res.gap.median()),
             "max_abs_a": res.uPred[..., 0].abs().max().item(),
             "max_abs_r": res.uPred[..., 1].abs().max().item()}
-    prof = profile_step(lambda: step(c, xs, zs, xRefs, pset.params)[1].uPred.cpu())
-    emit({**line, "profile": prof, **card})
+    # where a step's time goes, profiled over 8 of its iterations (the trace
+    # of a whole launch-bound step takes longer to read than the step)
+    step_p = make_branch_mpc_step(model, params, "prox", ipm=QPIPMConfig(iters=8))[2]
+    prof = profile_step(lambda: step_p(c, xs, zs, xRefs, pset.params)[1].uPred.cpu())
+    emit({**line, "profile_8_iters": prof, **card})
     if not finite or tuple(res.uPred.shape) != (BENCH_B, topo.totalu, d):
         raise AssertionError("per-tree QP main path: non-finite outputs or wrong shape")
     del c, res
@@ -1391,18 +1423,23 @@ MERGE_EPISODE_B = 32768
 MERGE_EPISODE_STEPS = 10
 
 
+def quad_cons():
+    """The quadruped demo's constants (``examples/main_quadruped.py:24-29``)."""
+    from belief_planning_tpu_torch.utils.config import QuadConstants
+
+    return QuadConstants(s1=2, s2=3, c2=0.5, alpha=1, R=1.2, vxm=0.2, vym=0.1, rm=0.5,
+                         L1=0.5, W1=0.3, L2=1.0, W2=0.6, col_tol=0.2, col_alpha=5)
+
+
 def quad_config():
     """The quadruped's reference configuration (``scripts/bench_configs.py:
     193-222``): ``(pset, model, params)``."""
     from belief_planning_tpu_torch.models.policies import quadruped_policy_set
     from belief_planning_tpu_torch.models.predictive import quadruped_model
     from belief_planning_tpu_torch.presets import init_quad_branch_mpc
-    from belief_planning_tpu_torch.utils.config import QuadConstants
 
-    cons = QuadConstants(s1=2, s2=3, c2=0.5, alpha=1, R=1.2, vxm=0.2, vym=0.1, rm=0.5,
-                         L1=0.5, W1=0.3, L2=1.0, W2=0.6, col_tol=0.2, col_alpha=5)
     pset = quadruped_policy_set(0.2)
-    model = quadruped_model(cons, pset, N=QUAD_N, dt=0.2)
+    model = quadruped_model(quad_cons(), pset, N=QUAD_N, dt=0.2)
     params = init_quad_branch_mpc(3, 3, QUAD_N, 2, np.array([5.0, 5.0, 0.0]), 0.2, 0.1, 0.5)
     return pset, model, params
 
@@ -1813,6 +1850,492 @@ def run_host_loop_phases(dev, card, K):
     return line
 
 
+# ---- slice 10: the tree-QP ADMM, the robust and HMM controllers, the host loops ----
+# None of these paths runs a hand-written kernel (the reference's run no Pallas
+# kernel either): each phase sets every kernel's launch counter to 0 just
+# before its card side, reads them just after it, reports them and fails
+# unless they stayed 0. Every phase runs alone in this process: the card side,
+# then its CPU reference.
+ADMM_MAIN_B = 4096
+ADMM_MAIN_WARM = 3
+ADMM_CPU_ROWS = 64          # trees of the card's f64 step also solved on the CPU
+HMM_MAIN_B = 4096
+HMM_MAIN_WARM = 5
+ROBUST_IPM_STEPS, ROBUST_ADMM_STEPS = 5, 2
+HMM_HOST_STEPS = 3
+QUAD_HOST_STEPS = 3
+
+
+class Launches:
+    """Every kernel's launch counter: ``reset()``, then ``check(phase)``."""
+
+    def __init__(self, K, K2, K3, K5):
+        self.kernels = {"tree_qp_ipm_iter": K, "cvar_ipm_iter": K2, "proj_soc": K3,
+                        "shared_rows_probe": K5}
+
+    def reset(self):
+        for k in self.kernels.values():
+            k.launches = {m: 0 for m in k.launches} if isinstance(k.launches, dict) else 0
+            if hasattr(k, "phase_launches"):
+                k.phase_launches = 0
+
+    def check(self, phase):
+        got = {}
+        for name, k in self.kernels.items():
+            n_ = sum(k.launches.values()) if isinstance(k.launches, dict) else k.launches
+            got[name] = n_ + getattr(k, "phase_launches", 0)
+        if any(got.values()):
+            raise AssertionError(f"{phase}: a kernel was launched on a plain path: {got}")
+        return got
+
+
+def per_tree_du(u32, u64):
+    """Each tree's max |Δu| of an f32 result against the f64 one on the same
+    states: its p50, p90 and max over the trees."""
+    du = (u32.to(torch.float64) - u64).abs().reshape(u64.shape[0], -1).amax(1)
+    q = torch.quantile(du, torch.tensor([0.5, 0.9], dtype=torch.float64))
+    return {"p50": q[0].item(), "p90": q[1].item(), "max": du.max().item()}
+
+
+def device_profile(run):
+    """The device's busy time and idle share over one ``run()``, under
+    ``torch.profiler`` with the CUDA activity alone (the CPU's hundreds of
+    thousands of op events of a launch-bound step take longer to parse than
+    the step), and the top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_device = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            on_device[e.key] = (e.count, e.device_time_total / 1e3)
+    busy = sum(t for _, t in on_device.values())
+    top = sorted(on_device.items(), key=lambda kv: -kv[1][1])[:5]
+    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1 - busy / wall_ms),
+            "device_ops": sum(n_ for n_, _ in on_device.values()),
+            "top_device_ms": [[k[:70], t, n_] for k, (n_, t) in top]}
+
+
+def timed_steps(step, carrys, args, n):
+    """``n`` warm steps, each timed up to the fetch of ``uPred`` to the host."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carrys, res = step(carrys, *args)
+        _ = res.uPred.cpu()
+        times.append(time.perf_counter() - t0)
+    return carrys, res, times
+
+
+def tree_admm_run(where):
+    """``admm_solve`` on the overtake tree (N=8, NB=2), f64, B=8, from trees
+    built on the CPU, at 2 iterations and at the entry's config: ``{name:
+    (x, u, seconds)}``."""
+    from belief_planning_tpu_torch.entry import flagship
+    from belief_planning_tpu_torch.models.policies import cast_params
+    from belief_planning_tpu_torch.solvers.tree_qp import (
+        ADMMConfig,
+        admm_solve,
+        assemble_stage_cost,
+        build_stage_plan,
+    )
+    from belief_planning_tpu_torch.tree.engine import build_tree
+    from belief_planning_tpu_torch.tree.topology import build_topology
+
+    f64 = torch.float64
+    pset, model, params = overtake_setup()
+    B = 8
+    xs, zs, xRefs = (torch.as_tensor(a, dtype=f64) for a in bench_states(B, seed=5))
+    topo = build_topology(N, NB, model.m, n, d)
+    plan = build_stage_plan(topo)
+    ts = build_tree(model, topo, xs, zs, torch.zeros(B, topo.totalu, d, dtype=f64),
+                    cast_params(pset.params, f64, "cpu"))
+    cost = assemble_stage_cost(topo, ts, params.Q, params.R, params.Qf, params.dR, params.Qslack,
+                               xRefs, torch.zeros(B, d, dtype=f64))
+    mv = lambda a: a.to(where)
+    out = {}
+    for name, cfg in (("iters2", ADMMConfig(iters=2, rho_update_every=0, polish_iters=0)),
+                      ("entry", flagship()[3])):
+        t0 = time.perf_counter()
+        x_, u_, *_ = admm_solve(plan, type(cost)(*map(mv, cost)), type(ts)(*map(mv, ts)),
+                                params.Fx, params.bx, params.Fu, params.bu, mv(xs),
+                                mv(torch.zeros(B, d, dtype=f64)), cfg, device=where)
+        out[name] = (x_.cpu().numpy(), u_.cpu().numpy(), time.perf_counter() - t0)
+    return out
+
+
+def admm_step_cpu(states):
+    """The ADMM branch-MPC step at the entry's config in f64 on the CPU, cold,
+    on ``states = (xs, zs, xRefs)`` (numpy): ``uPred`` (numpy)."""
+    from belief_planning_tpu_torch.controllers.branch_mpc import make_branch_mpc_step
+    from belief_planning_tpu_torch.entry import flagship
+
+    pset, model, params = overtake_setup()
+    _, init, step = make_branch_mpc_step(model, params, "prox", solver="admm",
+                                         admm=flagship()[3], device="cpu")
+    st = [torch.as_tensor(a, dtype=torch.float64) for a in states]
+    return step(init(st[0].shape[0], torch.float64), *st, pset.params)[1].uPred.numpy()
+
+
+def _robust_mpcs(where):
+    """The robust controllers of ``robust_host_loop`` (N=8, NB=2, f64 on
+    ``where``): on the IPM-100 and on ``ADMMConfig()``."""
+    from belief_planning_tpu_torch.controllers.robust_mpc import RobustMPC
+    from belief_planning_tpu_torch.solvers.tree_qp import ADMMConfig
+    from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
+
+    pset, model, params = overtake_setup()
+    return (RobustMPC(params, model, pset.params, ipm=QPIPMConfig(iters=100), device=where),
+            RobustMPC(params, model, pset.params, admm=ADMMConfig(), solver="admm",
+                      device=where))
+
+
+ROBUST_XREF = np.array([0.0, 1.8, 18.0, 0.0])
+
+
+def robust_run(where, record=None):
+    """``tests/test_robust_mpc.py``'s closed loop on ``where`` (f64):
+    ``ROBUST_IPM_STEPS`` steps on the IPM-100, then ``ROBUST_ADMM_STEPS`` on
+    ``ADMMConfig()`` from its carry. Each step's inputs ``(x, z, carry)``
+    (numpy) are also appended to ``record`` before the step is solved.
+    Returns the applied inputs, the feasible flags and s a step."""
+    cons = overtake_cons()
+    dt = overtake_setup()[1].dt
+    f = lambda s_, u_: s_ + np.array([s_[2] * np.cos(s_[3]), s_[2] * np.sin(s_[3]),
+                                      u_[0], u_[1]]) * dt
+    mpcs = _robust_mpcs(where)
+    x, z = np.array([0.0, 1.8, 20.0, 0.0]), np.array([10.0, 2.1, 16.0, 0.0])
+    us, feas, secs = [], [], {}
+    for name, mpc, steps in (("ipm", mpcs[0], ROBUST_IPM_STEPS),
+                             ("admm", mpcs[1], ROBUST_ADMM_STEPS)):
+        if name == "admm":
+            mpc.carry = mpcs[0].carry
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            if record is not None:
+                record.append((x.copy(), z.copy(), [a.cpu().numpy().copy() for a in mpc.carry]))
+            u = np.asarray(mpc.solve(x, z, ROBUST_XREF))
+            us.append(u)
+            feas.append(mpc.feasible)
+            x, z = f(x, u), f(z, np.array([0.0, -cons.Kpsi * z[3]]))
+        secs[name] = (time.perf_counter() - t0) / steps
+    return np.array(us), feas, secs
+
+
+def robust_forced(record, where):
+    """Each step of a :func:`robust_run` solved again on ``where`` from the
+    state and carry in ``record``: the applied inputs, feasible flags and s
+    a step."""
+    mpcs = _robust_mpcs(where)
+    us, feas, secs = [], [], {"ipm": 0.0, "admm": 0.0}
+    for k, (x, z, carry) in enumerate(record):
+        name = "ipm" if k < ROBUST_IPM_STEPS else "admm"
+        mpc = mpcs[0] if name == "ipm" else mpcs[1]
+        t0 = time.perf_counter()
+        mpc.carry = type(mpc.carry)(*(torch.as_tensor(a, device=mpc.device) for a in carry))
+        us.append(np.asarray(mpc.solve(x, z, ROBUST_XREF)))
+        feas.append(mpc.feasible)
+        secs[name] += time.perf_counter() - t0
+    secs["ipm"] /= ROBUST_IPM_STEPS
+    secs["admm"] /= ROBUST_ADMM_STEPS
+    return np.array(us), feas, secs
+
+
+def hmm_config(M=1, N=6):
+    """The HMM bench's model and parameters (``scripts/bench_configs.py:235-290``)."""
+    from belief_planning_tpu_torch.models import policies as P
+    from belief_planning_tpu_torch.models.hmm import HMMPredictiveModel
+    from belief_planning_tpu_torch.presets import init_mpc_params
+    from belief_planning_tpu_torch.utils.config import HMMConstants
+
+    cons = HMMConstants(am=6.0, rm=0.3)
+    model = HMMPredictiveModel(nx=4, d=2, M=M, m=2, dt=0.1, cons=cons,
+                               policy_fns=(P.maintain, P.brake),
+                               policy_params=(P.MaintainParams(Kpsi=cons.Kpsi),
+                                              P.brake_params_sim(cons.Kpsi)))
+    params = init_mpc_params(4, 2, N, M, 2, ydes=1.8, vdes=15.0, am=6.0, rm=0.3, N_lane=6,
+                             W=2.4)
+    return model, params
+
+
+def hmm_states(B, M=1, m=2, N=6, seed=0):
+    """The HMM bench's states, drawn as it draws them (f64 numpy)."""
+    rng = np.random.default_rng(seed)
+    x0s = np.array([0.0, 1.8, 15.0, 0.0]) + rng.normal(0, 0.2, (B, 4))
+    b0s = rng.uniform(0.2, 0.8, (B, M, m))
+    b0s = b0s / b0s.sum(axis=2, keepdims=True)
+    z = np.array([14.0, 1.8, 10.0, 0.0])
+    steps = (np.arange(N) + 1)[None, :, None, None] * 0.1
+    vels = np.stack([np.array([10., 0, 0, 0]), np.array([8., 0, 0, 0])])
+    xbk = z[None, None, None, :] + steps * vels[None, None, :, :]
+    xbackups = np.broadcast_to(xbk, (B, N, M * m, 4)).copy()
+    xbackups += rng.normal(0, 0.1, xbackups.shape)
+    xRef = np.concatenate([np.array([0., 1.8, 15., 0.]), np.zeros(M * m)])
+    return x0s, b0s, xbackups, xRef
+
+
+def hmm_small_run(where, B=8, steps=2):
+    """The batched HMM step (IPM-8 with 2 correctors) in f64 at ``B`` of the
+    bench's states, ``steps`` carried steps: ``uPred (steps, B, N, 2)``."""
+    from belief_planning_tpu_torch.controllers.hmm_mpc import make_hmm_mpc_batched_step
+    from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
+
+    model, params = hmm_config()
+    _, init, bstep = make_hmm_mpc_batched_step(model, params, ipm=QPIPMConfig(iters=8, gondzio=2),
+                                               device=where)
+    args = [torch.as_tensor(a, dtype=torch.float64, device=where) for a in hmm_states(B)]
+    c, seq = init(B, torch.float64), []
+    for _ in range(steps):
+        c, r = bstep(c, *args)
+        seq.append(r.uPred.cpu().numpy())
+    return np.stack(seq)
+
+
+def hmm_host_run(where):
+    """``HMMHighwayEnv`` + ``HMMMPC`` (``tests/test_hmm.py``'s env: NV=3,
+    M=2, N=5, six lanes, seed 0) for ``HMM_HOST_STEPS`` steps: the states,
+    beliefs and backups a step, the generator's next draw, s a step."""
+    from belief_planning_tpu_torch.controllers.hmm_mpc import HMMMPC
+    from belief_planning_tpu_torch.envs.hmm_highway import HMMHighwayEnv
+
+    model, params = hmm_config(M=2, N=5)
+    env = HMMHighwayEnv(NV=3, mpc=HMMMPC(params, model, device=where), N_lane=6, seed=0)
+    t0 = time.perf_counter()
+    rec = []
+    for t in range(HMM_HOST_STEPS):
+        _, states = env.step(t)
+        rec.append((np.array(states), env.b.copy(), [v.backupidx for v in env.veh_set]))
+    return rec, env.rng.random(), (time.perf_counter() - t0) / HMM_HOST_STEPS
+
+
+def quad_host_run(where):
+    """``QuadEnv`` + ``BranchMPCProx`` at the demo's N=25, NB=2, dt = 0.2 (the
+    default IPM), f64, ``QUAD_HOST_STEPS`` steps in each ``ref_mode``:
+    ``{mode: (state_rec, backup choices, s a step)}``."""
+    from belief_planning_tpu_torch.controllers.branch_mpc import BranchMPCProx
+    from belief_planning_tpu_torch.envs.quadruped import QuadEnv, robot_sim
+
+    pset, model, params = quad_config()
+    mpc = BranchMPCProx(params, model, pset.params, device=where)
+    out = {}
+    for mode in ("default", "ros"):
+        mpc.carry = mpc._init_carry(1, torch.float64)
+        t0 = time.perf_counter()
+        rec = robot_sim(QuadEnv(NR=2, mpc=mpc, x_des=np.array([5., -3., 0.]), cons=quad_cons(),
+                                ref_mode=mode), QUAD_HOST_STEPS * model.dt)
+        out[mode] = (rec[0], rec[3], (time.perf_counter() - t0) / QUAD_HOST_STEPS)
+    return out
+
+
+def run_tree_admm_vs_cpu(dev, card, L):
+    """``tree_admm_vs_cpu``: :func:`tree_admm_run` on the card against the CPU
+    (``admm_solve``, f64, B=8, identical trees)."""
+    from belief_planning_tpu_torch.entry import flagship
+
+    admm = flagship()[3]
+    L.reset()
+    card_out = tree_admm_run(dev)
+    launches = L.check("tree_admm_vs_cpu")
+    cpu_out = tree_admm_run("cpu")
+    diffs = {name: {"u": float(np.abs(card_out[name][1] - cpu_out[name][1]).max()),
+                    "x": float(np.abs(card_out[name][0] - cpu_out[name][0]).max()), "tol": tol}
+             for name, tol in (("iters2", 1e-10), ("entry", 1e-7))}
+    secs = {f"{name}_{w}_s": o[name][2] for name in ("iters2", "entry")
+            for w, o in (("card", card_out), ("cpu", cpu_out))}
+    emit({"phase": "tree_admm_vs_cpu", "B": 8, "N": N, "NB": NB, "m": 3,
+          "dtype": "float64", "entry_admm": {"rho": admm.rho, "iters": admm.iters,
+                                             "rho_update_every": admm.rho_update_every,
+                                             "polish_iters": admm.polish_iters},
+          "max_abs_diff": diffs, "seconds": secs, "launches": launches,
+          **card})
+    if not (diffs["iters2"]["u"] < 1e-10 and diffs["iters2"]["x"] < 1e-10
+            and diffs["entry"]["u"] < 1e-7):
+        raise AssertionError(f"tree ADMM, card vs CPU: {diffs}")
+
+
+def run_admm_main_path(dev, card, L):
+    """``admm_main_path``: ``make_branch_mpc_step(solver="admm")`` at the
+    entry's config, f32, B=4096: a cold step, warm steps with the duals
+    carried, a profiled one, f32 against f64 on the card, the card's f64
+    against the CPU on the first trees; then ``entry()``'s step."""
+    from belief_planning_tpu_torch.controllers.branch_mpc import make_branch_mpc_step
+    from belief_planning_tpu_torch.entry import entry, flagship
+
+    f32, f64 = torch.float32, torch.float64
+    pset, model, params = overtake_setup()
+    admm = flagship()[3]
+    L.reset()
+    Bm = ADMM_MAIN_B
+    st = [torch.as_tensor(a) for a in bench_states(Bm, seed=0)]
+    out = {}
+    for dt_ in (f32, f64):
+        _, init, step = make_branch_mpc_step(model, params, "prox", solver="admm", admm=admm,
+                                             device=dev)
+        args = [a.to(dev, dt_) for a in st]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c, r = step(init(Bm, dt_), *args, pset.params)
+        out[dt_] = dict(u=r.uPred.cpu(), cold_s=time.perf_counter() - t0, step=step, args=args,
+                        c=c)
+    o = out[f32]
+    run = lambda c_, *a: o["step"](c_, *a, pset.params)
+    c, res, times = timed_steps(run, o["c"], o["args"], ADMM_MAIN_WARM)
+    prof = device_profile(lambda: run(c, *o["args"])[1].uPred.cpu())
+    fn, eargs = entry(device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ue = fn(*eargs).cpu()
+    entry_s = time.perf_counter() - t0
+    launches = L.check("admm_main_path")
+    k = ADMM_CPU_ROWS
+    u_cpu = admm_step_cpu([a[:k].numpy() for a in st])
+    cpu_du = (out[f64]["u"][:k] - torch.as_tensor(u_cpu)).abs().max().item()
+    prim = res.prim_res.float().cpu()
+    step_s = float(np.median(times))
+    finite = bool(res.uPred.isfinite().all()) and bool(o["u"].isfinite().all())
+    line = {"phase": "admm_main_path", "B": Bm, "N": N, "NB": NB, "dtype": "float32",
+            "admm_iters": admm.iters, "polish_iters": admm.polish_iters,
+            "cold_step_s": o["cold_s"], "warm_steps": ADMM_MAIN_WARM, "step_ms": step_s * 1e3,
+            "step_ms_each": [t * 1e3 for t in times], "solves_per_s": Bm / step_s,
+            "prim_res_p50": prim.median().item(), "prim_res_max": prim.max().item(),
+            "feasible_share": res.feasible.float().mean().item(),
+            "f32_vs_f64_card_du": per_tree_du(o["u"], out[f64]["u"]),
+            "f64_cold_step_s": out[f64]["cold_s"], "f64_card_vs_cpu_max_abs_du": cpu_du,
+            "f64_card_vs_cpu_trees": k,
+            "entry": {"shape": list(ue.shape), "finite": bool(ue.isfinite().all()),
+                      "seconds": entry_s, "solver": "ipm, as the reference's entry"},
+            "profile": prof, "launches": launches, **card}
+    emit(line)
+    if not (finite and cpu_du < 1e-7 and line["entry"]["finite"]):
+        raise AssertionError(f"ADMM main path: finite {finite}, f64 card vs CPU {cpu_du}, "
+                             f"entry finite {line['entry']['finite']}")
+    del out, c, res, o
+    torch.cuda.empty_cache()
+
+
+def run_robust_host_loop(dev, card, L):
+    """``robust_host_loop``: the closed loop on the CPU (:func:`robust_run`),
+    then each of its steps solved again on the card from the same state and
+    carry (:func:`robust_forced`). The loop amplifies rounding: one solve
+    near the IPM's gap floor moves u by ~2e-8 for a 1e-15 change of its
+    state, and the closed loop compounds it (``scripts/
+    torch_port_robust_chaos.py``), so card and CPU are compared step by
+    step, teacher-forced."""
+    record = []
+    up, fp, sp = robust_run("cpu", record)
+    L.reset()
+    uc, fc, sc = robust_forced(record, dev)
+    launches = L.check("robust_host_loop")
+    du = np.abs(uc - up).max(axis=1)
+    emit({"phase": "robust_host_loop", "N": N, "NB": NB, "m": 3, "rows_a_stage": 4 + 3 ** NB,
+          "dtype": "float64", "ipm_steps": ROBUST_IPM_STEPS, "ipm_iters": 100,
+          "admm_steps": ROBUST_ADMM_STEPS, "admm": "ADMMConfig()", "teacher_forced": True,
+          "s_per_step": {"card": sc, "cpu": sp}, "max_abs_du_per_step": du.tolist(),
+          "max_abs_du": float(du.max()), "tol": 1e-7, "feasible": fc, "feasible_cpu": fp,
+          "launches": launches, **card})
+    if not (du.max() < 1e-7 and fc == fp):
+        raise AssertionError(f"robust host loop, card vs CPU: |du| {du}, feasible {fc} {fp}")
+
+
+def run_hmm_phases(dev, card, L):
+    """``hmm_main_path`` (the batched step at the reference's bench, B=4096,
+    IPM-8 with 2 correctors, f32: solves/s over warm steps, the feasible
+    share, f32 against f64 on the card, a profiled step), ``hmm_vs_cpu``
+    (f64, B=8, two carried steps), ``hmm_host_loop`` (:func:`hmm_host_run`,
+    card against CPU)."""
+    from belief_planning_tpu_torch.controllers.hmm_mpc import make_hmm_mpc_batched_step
+    from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
+
+    f32, f64 = torch.float32, torch.float64
+    model, params = hmm_config()
+    ipm = QPIPMConfig(iters=8, gondzio=2)
+    L.reset()
+    st = hmm_states(HMM_MAIN_B)
+    out = {}
+    for dt_ in (f32, f64):
+        _, init, bstep = make_hmm_mpc_batched_step(model, params, ipm=ipm, device=dev)
+        args = [torch.as_tensor(a, dtype=dt_, device=dev) for a in st]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c, r = bstep(init(HMM_MAIN_B, dt_), *args)
+        out[dt_] = dict(u=r.uPred.cpu(), c=c, args=args, step=bstep,
+                        cold_s=time.perf_counter() - t0)
+    o = out[f32]
+    c, res, times = timed_steps(o["step"], o["c"], o["args"], HMM_MAIN_WARM)
+    prof = device_profile(lambda: o["step"](c, *o["args"])[1].uPred.cpu())
+    launches = L.check("hmm_main_path")
+    step_s = float(np.median(times))
+    finite = bool(res.uPred.isfinite().all())
+    emit({"phase": "hmm_main_path", "B": HMM_MAIN_B, "M": 1, "m": 2, "N": params.N,
+          "ipm_iters": ipm.iters, "gondzio": ipm.gondzio, "dtype": "float32",
+          "cold_step_s": o["cold_s"], "warm_steps": HMM_MAIN_WARM, "step_ms": step_s * 1e3,
+          "step_ms_each": [t * 1e3 for t in times], "solves_per_s": HMM_MAIN_B / step_s,
+          "feasible_share": res.feasible.float().mean().item(),
+          "prim_res_p50": res.prim_res.float().median().item(),
+          "f32_vs_f64_card_du": per_tree_du(o["u"], out[f64]["u"]),
+          "f64_cold_step_s": out[f64]["cold_s"], "profile": prof, "launches": launches, **card})
+    if not finite:
+        raise AssertionError("HMM main path: non-finite inputs")
+    del out, c, res, o
+    torch.cuda.empty_cache()
+
+    L.reset()
+    u_card = hmm_small_run(dev)
+    launches = L.check("hmm_vs_cpu")
+    du = float(np.abs(u_card - hmm_small_run("cpu")).max())
+    emit({"phase": "hmm_vs_cpu", "B": 8, "dtype": "float64", "steps": 2, "ipm_iters": ipm.iters,
+          "max_abs_du": du, "tol": 1e-9, "launches": launches, **card})
+    if not du < 1e-9:
+        raise AssertionError(f"HMM step, card vs CPU: |du| {du}")
+
+    L.reset()
+    rc, dc, sc = hmm_host_run(dev)
+    launches = L.check("hmm_host_loop")
+    rp, dp, sp = hmm_host_run("cpu")
+    diff = {"states": max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(rc, rp)),
+            "beliefs": max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(rc, rp))}
+    same = {"backups": [a[2] for a in rc] == [b[2] for b in rp], "next_draw": dc == dp}
+    emit({"phase": "hmm_host_loop", "NV": 3, "M": 2, "N": 5, "steps": HMM_HOST_STEPS,
+          "dtype": "float64", "s_per_step": {"card": sc, "cpu": sp}, "max_abs_diff": diff,
+          "equal": same, "tol": {"states": 1e-7, "beliefs": 1e-9},
+          "launches": launches, **card})
+    if not (diff["states"] < 1e-7 and diff["beliefs"] < 1e-9 and all(same.values())):
+        raise AssertionError(f"HMM host loop, card vs CPU: {diff}, equal {same}")
+
+
+def run_quad_host_loop(dev, card, L):
+    """``quad_host_loop``: :func:`quad_host_run` on the card against the CPU."""
+    L.reset()
+    oc = quad_host_run(dev)
+    launches = L.check("quad_host_loop")
+    op = quad_host_run("cpu")
+    diff = {mode: float(np.abs(oc[mode][0] - op[mode][0]).max()) for mode in oc}
+    same = {mode: oc[mode][1] == op[mode][1] for mode in oc}
+    emit({"phase": "quad_host_loop", "N": QUAD_N, "NB": 2, "dt": 0.2, "steps": QUAD_HOST_STEPS,
+          "dtype": "float64", "s_per_step": {f"{w}_{mode}": o[mode][2] for mode in oc
+                                             for w, o in (("card", oc), ("cpu", op))},
+          "max_abs_diff_states": diff, "equal_backups": same, "tol": 1e-7,
+          "launches": launches, **card})
+    if not (max(diff.values()) < 1e-7 and all(same.values())):
+        raise AssertionError(f"quadruped host loop, card vs CPU: {diff}, equal {same}")
+
+
+def run_slice10_phases(dev, card, L):
+    """Slice 10's phases, one after another in this process: the two
+    throughput phases first, then the comparisons and the host loops."""
+    run_admm_main_path(dev, card, L)
+    run_hmm_phases(dev, card, L)
+    run_tree_admm_vs_cpu(dev, card, L)
+    run_quad_host_loop(dev, card, L)
+    run_robust_host_loop(dev, card, L)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -2070,7 +2593,12 @@ def main() -> int:
     overtake_launches = run_overtake_episode_phases(dev, card, K)
     run_host_loop_phases(dev, card, K)
 
-    # ---- 11. kernels line, card line, result ------------------------------------
+    # ---- 11. slice 10: the tree-QP ADMM, the robust and HMM paths (no kernel) -----
+    t_slice10 = time.perf_counter()
+    run_slice10_phases(dev, card, Launches(K, K2, K3, K5))
+    emit({"phase": "slice10_seconds", "seconds": time.perf_counter() - t_slice10, **card})
+
+    # ---- 12. kernels line, card line, result ------------------------------------
     emit({"kernels": [{
         "name": "tree_qp_ipm_iter",
         "route": "cuda",

@@ -26,7 +26,11 @@ CPU machine (6 workers; its time limit raised so that the run reached its
 end: 1,754 s, 356 passed), tabulated by
 ``python scripts/tier1_file_seconds.py <junit xml>``; the two slice-9 files
 (``test_torch_batched_highway.py``, ``test_torch_host_envs.py``) from a
-later full run of the same command (839.6 s, 389 passed).
+later full run of the same command (839.6 s, 389 passed); the seven slice-10
+files (``test_torch_tree_admm.py``, ``test_torch_admm_oracle.py``,
+``test_torch_admm_mpc.py``, ``test_torch_robust_mpc.py``,
+``test_torch_hmm.py``, ``test_torch_hmm_admm.py``,
+``test_torch_quad_env.py``) from a later one (917.6 s, 435 passed).
 
 This file imports neither jax nor torch.
 """
@@ -65,7 +69,14 @@ FILE_SECONDS = {
     "tests/test_torch_tree_qp_pl.py": 60.2,
     "tests/test_cvar_oracle.py": 56.1,
     "tests/test_subsystems.py": 50.4,
+    "tests/test_torch_admm_mpc.py": 53.0,
     "tests/test_torch_quadruped.py": 46.1,
+    "tests/test_torch_tree_admm.py": 41.6,
+    "tests/test_torch_robust_mpc.py": 53.7,
+    "tests/test_torch_hmm.py": 57.0,
+    "tests/test_torch_quad_env.py": 34.9,
+    "tests/test_torch_admm_oracle.py": 9.1,
+    "tests/test_torch_hmm_admm.py": 10.7,
     "tests/test_torch_branch_mpc.py": 43.1,
     "tests/test_torch_kernel_cpu_build.py": 31.8,
     "tests/test_torch_cvar_admm.py": 31.2,

@@ -14,7 +14,8 @@ plain fused iteration), with the small overtake config (N=3, NB=1):
   package's own bar between its couplings, ``tests/test_batched_env.py``);
   the port's two couplings agree to 1e-6;
 - ``assemble_stage_cost(variant="branch")`` against the JAX package's, to
-  1e-12, with and without the reference's quirks."""
+  1e-12, with and without the reference's quirks, and ``variant="robust"``;
+- ``make_batched_overtake(solver="admm")`` builds and steps."""
 
 import jax
 import jax.numpy as jnp
@@ -50,7 +51,7 @@ from belief_planning_tpu_torch.envs.batched_highway import (
 )
 from belief_planning_tpu_torch.models.policies import LaneChangeParams, highway_policy_set
 from belief_planning_tpu_torch.models.predictive import highway_model
-from belief_planning_tpu_torch.solvers.tree_qp import assemble_stage_cost
+from belief_planning_tpu_torch.solvers.tree_qp import ADMMConfig, assemble_stage_cost
 from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
 from belief_planning_tpu_torch.tree.topology import build_topology
 
@@ -318,7 +319,7 @@ def test_couplings_agree(episodes, field):
     assert np.abs(episodes["p"][1][field].numpy() - episodes["t"][1][field].numpy()).max() < 1e-6
 
 
-def test_init_worlds_and_episode_api(episodes):
+def test_init_worlds_and_episode_api(setup, episodes):
     """``init_worlds`` draws the obstacle from its seed (or generator), the
     ego starts in lane 0; ``episode`` draws its uniforms from its seed and
     ``step_once`` is one of its steps."""
@@ -333,8 +334,15 @@ def test_init_worlds_and_episode_api(episodes):
     w1, traj = tepisode(w0, 1, seed=9)
     w1b, out = tepisode.step_once(w0, 0, draws[0])
     assert torch.equal(traj["u"][:, 0], out["u"]) and torch.equal(w1.x, w1b.x)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        make_batched_overtake(None, None, None, solver="admm", device="cpu")
+    # the per-tree coupling on the ADMM builds, and its worlds carry the duals
+    tparams, tcons, _, tmodel = setup["t"]
+    admm = ADMMConfig(iters=2, rho_update_every=0, polish_iters=0)
+    topo, ainit, aepisode = make_batched_overtake(tcons, tmodel, tparams, "prox", dtype=F64,
+                                                  solver="admm", admm=admm, device="cpu")
+    aw0 = ainit(2, seed=4)
+    assert aw0.mpc_carry.y1.shape == (2, topo.totalu, 5) and not aw0.mpc_carry.y1.any()
+    aw1, atraj = aepisode(aw0, 1, seed=9)
+    assert atraj["u"].isfinite().all() and aw1.mpc_carry.y2.shape == (2, topo.totalu, 4)
 
 
 # ---- the live BranchMPC's cost ---------------------------------------------
@@ -358,7 +366,8 @@ def branch_costs(setup):
     def jcost(x, z, u, xRef, o):
         ts = j_build_tree(model, topo, x, z, u, pset.params)
         return ts, [j_assemble(topo, ts, params.Q, params.R, Qf, dR, params.Qslack, xRef, o,
-                               variant="branch", replicate_quirks=q) for q in (True, False)]
+                               variant=v, replicate_quirks=q)
+                    for v, q in (("branch", True), ("branch", False), ("robust", True))]
 
     jts, jcs = jax.jit(jax.vmap(jcost))(xs, zs, u_lin, xRefs, old)
     tts = convert_tree_state(jts, "cpu")
@@ -366,7 +375,7 @@ def branch_costs(setup):
     tcost = lambda variant, q: assemble_stage_cost(ttopo, tts, tparams.Q, tparams.R, Qf, dR,
                                                    tparams.Qslack, _t(xRefs), _t(old),
                                                    variant=variant, replicate_quirks=q)
-    return dict(j=dict(zip((True, False), jcs)), tcost=tcost)
+    return dict(j=dict(zip((True, False, "robust"), jcs)), tcost=tcost)
 
 
 @pytest.mark.parametrize("quirks", [True, False])
@@ -376,5 +385,9 @@ def test_branch_cost_matches_jax(branch_costs, quirks):
         ja = np.broadcast_to(np.asarray(getattr(jc, f)), getattr(tc, f).shape)
         assert np.abs(getattr(tc, f).numpy() - ja).max() < 1e-12, f
     assert not np.any(tc.Dab2.numpy()) and not np.any(tc.qterm.numpy())
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        branch_costs["tcost"]("robust", quirks)
+    # the robust controllers' cost (the prox assembly, dQ = 0, no quirks,
+    # whatever replicate_quirks says) on the same trees
+    jr, tr = branch_costs["j"]["robust"], branch_costs["tcost"]("robust", quirks)
+    for f in tr._fields:
+        ja = np.broadcast_to(np.asarray(getattr(jr, f)), getattr(tr, f).shape)
+        assert np.abs(getattr(tr, f).numpy() - ja).max() < 1e-12, f

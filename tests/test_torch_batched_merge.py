@@ -78,7 +78,7 @@ def run():
     for _ in range(STEPS):
         # the port starts from the JAX side's worlds (teacher forcing)
         tw = MergeWorldState(
-            mpc_carry=MPCCarry(*(t(getattr(jw.mpc_carry, f)) for f in MPCCarry._fields)),
+            mpc_carry=MPCCarry(*(t(getattr(jw.mpc_carry, f)) for f in MPCCarry._fields[:4])),
             x=t(jw.x), z=t(jw.z), merged=t(jw.merged), collided=t(jw.collided))
         tnew, tout = tepisode.step_once(tw)
         jnew, jout = jstep(jw)

@@ -204,6 +204,6 @@ def test_step_restart_keeps_the_better_solve(problems):
                                     ("neighborhood", 0.3), ("split_step", True),
                                     ("recenter", 2), ("diag_extra", True)])
 def test_diagnostic_options_are_not_ported(problems, option):
-    with pytest.raises(NotImplementedError, match="Queue A item 4b"):
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
         _port_solve(problems["merge"], dict([option]), 2, torch.float64)
 

@@ -184,3 +184,59 @@ def test_ipm_solvers_default_to_cuda():
             with pytest.raises(RuntimeError, match="CUDA"):
                 call()
         assert call(device="cpu").device.type == "cpu"
+
+
+def _hmm_args():
+    from belief_planning_tpu_torch.models import policies as pol
+    from belief_planning_tpu_torch.models.hmm import HMMPredictiveModel
+    from belief_planning_tpu_torch.presets import init_mpc_params
+    from belief_planning_tpu_torch.utils.config import HMMConstants
+
+    cons = HMMConstants()
+    model = HMMPredictiveModel(nx=4, d=2, M=1, m=2, dt=0.1, cons=cons,
+                               policy_fns=(pol.maintain, pol.brake),
+                               policy_params=(pol.MaintainParams(Kpsi=0.1),
+                                              pol.brake_params_sim(0.1)))
+    return model, init_mpc_params(4, 2, 4, 1, 2, ydes=1.8, vdes=15.0, am=6.0, rm=0.3,
+                                  N_lane=6, W=2.4)
+
+
+def _slice10_factories():
+    from belief_planning_tpu_torch.controllers.branch_mpc import BranchMPCProx, make_branch_mpc_step
+    from belief_planning_tpu_torch.controllers.hmm_mpc import (
+        HMMMPC,
+        make_hmm_mpc_batched_step,
+        make_hmm_mpc_step,
+    )
+    from belief_planning_tpu_torch.controllers.robust_mpc import RobustMPC, make_robust_mpc_step
+    from belief_planning_tpu_torch.entry import entry
+    from belief_planning_tpu_torch.models.policies import highway_policy_set
+    from belief_planning_tpu_torch.utils.config import BranchConstants
+
+    pp = highway_policy_set(BranchConstants(), np.array([0.5, 1.8, 15.0, 0.0])).params
+    return {
+        "admm_step": lambda **kw: make_branch_mpc_step(*_factory_args(), solver="admm", **kw)[1](1),
+        "BranchMPCProx_admm": lambda **kw: BranchMPCProx(*_factory_args()[::-1], pp,
+                                                         solver="admm", **kw).carry,
+        "robust_step": lambda **kw: make_robust_mpc_step(*_factory_args(), **kw)[1](1),
+        "RobustMPC": lambda **kw: RobustMPC(*_factory_args()[::-1], pp, **kw).carry,
+        "hmm_step": lambda **kw: make_hmm_mpc_step(*_hmm_args(), **kw)[1](1),
+        "hmm_batched_step": lambda **kw: make_hmm_mpc_batched_step(*_hmm_args(), **kw)[1](1),
+        "HMMMPC": lambda **kw: HMMMPC(*_hmm_args()[::-1], **kw).carry,
+        "entry": lambda **kw: entry(**kw)[1][1],
+    }
+
+
+@pytest.mark.parametrize("name", ["admm_step", "BranchMPCProx_admm", "robust_step", "RobustMPC",
+                                  "hmm_step", "hmm_batched_step", "HMMMPC", "entry"])
+def test_slice10_entry_points_default_to_cuda(name):
+    """The ADMM step, the robust and HMM controllers and ``entry()``: CUDA
+    unless the caller passes ``device="cpu"``."""
+    make = _slice10_factories()[name]
+    first = lambda out: out if torch.is_tensor(out) else out[0]
+    if torch.cuda.is_available():
+        assert first(make()).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert first(make(device="cpu")).device.type == "cpu"

@@ -184,10 +184,3 @@ def test_per_tree_step_pins_the_fused_step(case):
         assert torch.equal(rb.feasible, rp.feasible)
     assert bool(outs[0][-1].feasible.all())
     assert outs[0][-1].prim_res.max().item() < 1e-7
-
-
-def test_admm_solver_is_not_ported(case):
-    model, params, _ = _port_model(case["params"], case["cons"], case["pset"])
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        make_branch_mpc_step(model, params, "prox", solver="admm", device="cpu")
-
