@@ -142,9 +142,24 @@ Phases, one JSON line each:
     5 IPM-100 steps and 2 ``ADMMConfig()`` steps on the CPU, each step
     solved again on the card from the same state and carry, |Δu| < 1e-7),
     and ``slice10_seconds``;
-12. the ``kernels`` line (all five kernels; K1's with an entry for each
-    instantiation and its main-path launches by path), the ``nvidia-smi``
-    line, and the result line.
+12. slice 11, scale-out over ``torch.distributed``: each phase spawns its
+    own ranks (``parallel.launch.launch``; two gloo ranks share the one card,
+    as NCCL refuses two ranks on one device), and each rank sets K1's and
+    K2's launch counters to 0 just before its timed run, reads them just
+    after and returns them: ``ensemble_ipm_sharded`` (the QP overtake on
+    K1, IPM-8 with 2 correctors, f32, B=32768 as 2 × 16,384, 5 warm steps:
+    each rank's and the aggregate solves/s beside the one-process step's,
+    each rank's idle share, 8 launches a step; then in f64 at B=1024 each
+    rank's u over two steps against the one-process step's rows on the card,
+    ≤ 1e-12), ``ensemble_cvar_sharded`` (the merge on K2, IPM-24, the
+    same), ``overtake_episode_sharded`` (B=32768, 10 warm world steps, the
+    reduced metrics), ``tree_kkt_sharded`` (m=4, NB=5, N=2, T=256, f64,
+    mp=2, against the unsharded sweeps, ≤ 1e-12, its bytes),
+    ``nccl_world1`` (the QP ensemble on one NCCL rank) and
+    ``dryrun_multichip`` (2 gloo ranks), then ``slice11_seconds``;
+13. the ``kernels`` line (all five kernels; K1's with an entry for each
+    instantiation; K1's and K2's launches by path, the ranks' too), the
+    ``nvidia-smi`` line, and the result line.
 
 Every kernel source is built at the start, in parallel (one nvcc each).
 
@@ -2336,6 +2351,459 @@ def run_slice10_phases(dev, card, L):
     run_robust_host_loop(dev, card, L)
 
 
+# ---- slice 11: the rank-sharded ensembles, the branch-sharded tree KKT, dryrun ----
+# Each phase spawns its own ranks (``parallel.launch.launch``): two gloo ranks
+# sharing the one card (NCCL refuses two ranks on one device), or one NCCL
+# rank. The rank functions below run in those processes (spawn imports them
+# from this file); each resets K1's and K2's launch counters in its own
+# process just before its timed run and reads them just after.
+SHARD_B = 32768
+SHARD_WARM = 5
+SHARD_EPISODE_STEPS = 10
+SHARD_CHECK_B = 1024
+KKT_DIMS = (2, 5, 4, 4, 2)       # N, NB, m, n, d: m=4, NB=5, 1,024 leaf branches
+KKT_T = 256
+KKT_REPS = 3
+
+
+def _k12():
+    from belief_planning_tpu_torch.solvers import cvar_pl, tree_qp_pl
+
+    return tree_qp_pl.KERNEL, cvar_pl.KERNEL
+
+
+def _reset_launches():
+    K, K2 = _k12()
+    K.launches, K2.launches = 0, 0
+
+
+def _launches():
+    K, K2 = _k12()
+    return {"tree_qp_ipm_iter": K.launches, "cvar_ipm_iter": K2.launches}
+
+
+def _ensemble_case(kind, B, dtype):
+    """``(model, params, pset, make_kw, states, step_kw)`` of a sharded
+    ensemble phase on the CPU: the QP overtake (``bench.py``'s states) or
+    the merge (its worlds, per-lane S and bx)."""
+    if kind == "ipm":
+        pset, model, params = overtake_setup()
+        states = tuple(torch.as_tensor(a, dtype=dtype) for a in bench_states(B))
+        return model, params, pset, {}, states, {}
+    model, params, pset, _, ralpha, _ = cvar_config("cvar_merge")
+    xs, zs, xRefs, S, bx = cvar_states("cvar_merge", B, torch.device("cpu"), dtype)
+    return model, params, pset, {"ralpha": ralpha, "use_S": True}, (xs, zs, xRefs), \
+        {"S": S, "bx": bx}
+
+
+def _sharded_maker(kind):
+    from belief_planning_tpu_torch.parallel import ensemble
+
+    return {"ipm": ensemble.make_sharded_ipm_ensemble_step,
+            "cvar": ensemble.make_sharded_cvar_ensemble_step}[kind]
+
+
+def _one_process_maker(kind, model, params, make_kw, device):
+    """The one-process step of a phase: ``(init(B, dtype), step)``."""
+    from belief_planning_tpu_torch.controllers.branch_mpc import make_branch_mpc_batched_step
+    from belief_planning_tpu_torch.controllers.cvar_mpc import make_cvar_mpc_batched_step
+    from belief_planning_tpu_torch.solvers.cvar_ipm import CVaRIPMConfig
+    from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
+
+    if kind == "ipm":
+        return make_branch_mpc_batched_step(model, params, "prox",
+                                            ipm=QPIPMConfig(iters=8, gondzio=2),
+                                            device=device)[1:]
+    return make_cvar_mpc_batched_step(model, params, make_kw["ralpha"],
+                                      ipm=CVaRIPMConfig(iters=24, gondzio=2), use_S=True,
+                                      device=device)[2:]
+
+
+def _timed(run, n):
+    """``n`` calls of ``run()``, each timed on the host clock from a
+    synchronized card to the end of its work on the card; returns the last
+    output and the seconds."""
+    times, out = [], None
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, times
+
+
+def shard_ensemble_rank(device, kind):
+    """A rank of ``ensemble_{kind}_sharded``: a cold step and SHARD_WARM
+    timed warm steps at SHARD_B trees (f32, this rank's rows), a profiled
+    step, then the f64 card check at SHARD_CHECK_B: this rank's ``uPred``
+    over two steps against the one-process step on the card on the same
+    rows."""
+    from belief_planning_tpu_torch.parallel.ensemble import local_rows, make_mesh, shard_rows
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((torch.distributed.get_world_size(),), ("dp",), device=device)
+    f32, f64 = torch.float32, torch.float64
+    model, params, pset, make_kw, states, step_kw = _ensemble_case(kind, SHARD_B, f32)
+    _, init, step = _sharded_maker(kind)(model, params, mesh, **make_kw)
+    args = shard_rows(mesh, states)
+    kw = shard_rows(mesh, step_kw)
+    c, u, _ = step(init(SHARD_B, f32), *args, pset.params, **kw)
+    _ = u.cpu()                                                   # the cold step
+    state = {"c": c}
+
+    def warm():
+        state["c"], u_, m_ = step(state["c"], *args, pset.params, **kw)
+        return u_.cpu(), m_
+
+    _reset_launches()
+    (u, metrics), times = _timed(warm, SHARD_WARM)
+    launches = _launches()
+    prof = device_profile(warm)
+    out = {"rank": mesh.rank, "device": str(mesh.device),
+           "backend": torch.distributed.get_backend(), "rows": int(u.shape[0]),
+           "times": times, "launches": launches, "finite": bool(u.isfinite().all()),
+           "metrics": {k: float(v) for k, v in metrics.items()},
+           "device_busy_ms": prof["device_busy_ms"], "wall_ms_profiled": prof["wall_ms_profiled"],
+           "device_idle_share": prof["device_idle_share"]}
+    del state, args, kw
+    torch.cuda.empty_cache()
+
+    # the card check: f64, this rank's rows against the one-process step on
+    # the whole batch. On the card the step's ops and kernels are per tree,
+    # so a sub-batch rounds as the whole batch does (on the CPU it need not:
+    # vector loops and their scalar tails round some elementwise ops apart,
+    # and the merge's CVaR IPM-24 amplifies 2.5e-16 into 0.032)
+    model, params, pset, make_kw, states, step_kw = _ensemble_case(kind, SHARD_CHECK_B, f64)
+    _, init, step = _sharded_maker(kind)(model, params, mesh, **make_kw)
+    rows = local_rows(mesh, SHARD_CHECK_B)
+    args, kw = shard_rows(mesh, states), shard_rows(mesh, step_kw)
+    init1, step1 = _one_process_maker(kind, model, params, make_kw, mesh.device)
+    args1 = tuple(t.to(mesh.device) for t in states)
+    kw1 = {k: v.to(mesh.device) for k, v in step_kw.items()}
+    c, c1 = init(SHARD_CHECK_B, f64), init1(SHARD_CHECK_B, f64)
+    diffs = []
+    for _ in range(2):
+        c, u, _ = step(c, *args, pset.params, **kw)
+        c1, r1 = step1(c1, *args1, pset.params, **kw1)
+        diffs.append((u - r1.uPred[rows]).abs().max().item())
+    out["f64_check"] = {"B": SHARD_CHECK_B, "rows": [rows.start, rows.stop],
+                        "max_abs_du_by_step": diffs}
+    return out
+
+
+def shard_episode_rank(device):
+    """A rank of ``overtake_episode_sharded``: a cold world step, then
+    SHARD_EPISODE_STEPS timed world steps on this rank's SHARD_B / W worlds,
+    f32, IPM-8 with 2 correctors."""
+    from belief_planning_tpu_torch.parallel.ensemble import (
+        make_mesh,
+        make_sharded_overtake_episode,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((torch.distributed.get_world_size(),), ("dp",), device=device)
+    pset, model, params = overtake_setup()
+    _, init_worlds, episode = make_sharded_overtake_episode(overtake_cons(), model, params, mesh)
+    w0 = init_worlds(SHARD_B, seed=0)
+    w1, _, _ = episode(w0, 1, seed=1)
+    _ = w1.x.cpu()
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w, traj, metrics = episode(w1, SHARD_EPISODE_STEPS, seed=2, t0=1)
+    u = traj["u"].cpu()
+    sec = time.perf_counter() - t0
+    return {"rank": mesh.rank, "worlds": int(u.shape[0]), "seconds": sec,
+            "launches": _launches(), "finite": bool(u.isfinite().all()),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "feasible_share_rank": traj["feasible"].float().mean().item()}
+
+
+def kkt_case(device, T=KKT_T, seed=0):
+    """The branch-sharded KKT's random blocks (the reference dryrun's
+    recipe, ``__graft_entry__.py:140-162``) of the tree KKT_DIMS, f64,
+    batch-last with T lanes, drawn on ``device`` from ``seed``."""
+    from belief_planning_tpu_torch.solvers.tree_qp import build_stage_plan
+    from belief_planning_tpu_torch.tree.topology import build_topology
+
+    N_, NB_, m_, n_, d_ = KKT_DIMS
+    topo = build_topology(N_, NB_, m_, n_, d_)
+    tu, nl = topo.totalu, m_ ** NB_
+    g = torch.Generator(device=device).manual_seed(seed)
+    f64 = torch.float64
+    rnd = lambda *shape: torch.randn(shape, generator=g, dtype=f64, device=device)
+
+    def sym(shape, dim, shift):
+        M = 0.1 * rnd(*shape)
+        eye = torch.eye(dim, dtype=f64, device=device)[:, :, None]
+        return 0.5 * (M + M.transpose(-3, -2)) + shift * eye
+
+    bl = dict(Qx2=sym((tu, n_, n_, T), n_, 2.0), Ru2=sym((tu, d_, d_, T), d_, 1.0),
+              Dab2=0.05 * rnd(tu, d_, d_, T),
+              A=torch.eye(n_, dtype=f64, device=device)[:, :, None] + 0.1 * rnd(tu, n_, n_, T),
+              B=0.3 * rnd(tu, n_, d_, T), qx=rnd(tu, n_, T), qu=rnd(tu, d_, T),
+              Pterm2=sym((nl, n_, n_, T), n_, 2.0), qterm=rnd(nl, n_, T))
+    return build_stage_plan(topo), bl
+
+
+def shard_kkt_rank(device):
+    """A rank of ``tree_kkt_sharded``: the (1, W) mesh on ("dp", "mp"), the
+    blocks cut to this rank, KKT_REPS timed solves; rank 0 returns the
+    gathered result."""
+    from belief_planning_tpu_torch.parallel.ensemble import make_mesh
+    from belief_planning_tpu_torch.parallel.tree_shard import (
+        LEAF_KEYS,
+        LEVEL_KEYS,
+        make_sharded_tree_kkt,
+        split_ulevels,
+    )
+    from belief_planning_tpu_torch.solvers.tree_qp_pl import build_levels
+
+    mesh = make_mesh((1, torch.distributed.get_world_size()), ("dp", "mp"), device=device)
+    plan, bl = kkt_case(mesh.device)
+    levels = build_levels(plan)
+    solve = make_sharded_tree_kkt(plan, mesh)
+    blocks = {k: split_ulevels(bl[k], levels) for k in LEVEL_KEYS}
+    blocks.update({k: bl[k] for k in LEAF_KEYS})
+    local = solve.shard(blocks)
+    del bl, blocks
+    local_bytes = sum(t.numel() * t.element_size() for k in LEVEL_KEYS for t in local[k]) \
+        + sum(local[k].numel() * local[k].element_size() for k in LEAF_KEYS)
+    (dx_l, du_l), times = _timed(lambda: solve(local), KKT_REPS)
+    out = {"rank": mesh.rank, "shards": solve.shards, "ms": [t * 1e3 for t in times],
+           "local_input_bytes": local_bytes, "launches": _launches()}
+    dx, du = solve.gather(dx_l, du_l)
+    if mesh.rank == 0:
+        out["whole"] = ([t.cpu() for t in dx], [t.cpu() for t in du])
+    return out
+
+
+def run_sharded_ensemble_phase(dev, card, kind):
+    """``ensemble_ipm_sharded`` (the QP overtake on K1, IPM-8 with 2
+    correctors) or ``ensemble_cvar_sharded`` (the merge on K2, IPM-24 with 2
+    correctors): SHARD_B trees as 2 gloo ranks on the card, each rank's and
+    the aggregate solves/s beside the one-process step's in this process,
+    and the f64 card check at SHARD_CHECK_B (≤ 1e-12)."""
+    from belief_planning_tpu_torch.parallel.launch import launch
+
+    f32 = torch.float32
+    model, params, pset, make_kw, states, step_kw = _ensemble_case(kind, SHARD_B, f32)
+    init1, step1 = _one_process_maker(kind, model, params, make_kw, dev)
+    args = tuple(t.to(dev) for t in states)
+    kw = {k: v.to(dev) for k, v in step_kw.items()}
+    state = {"c": step1(init1(SHARD_B, f32), *args, pset.params, **kw)[0]}
+
+    def warm():
+        state["c"], r = step1(state["c"], *args, pset.params, **kw)
+        return r.uPred.cpu()
+
+    _, one_times = _timed(warm, SHARD_WARM)
+    del state, args, kw
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(shard_ensemble_rank, 2, "gloo", str(dev), args=(kind,))
+    launch_s = time.perf_counter() - t0
+    iters = 8 if kind == "ipm" else 24
+    kernel = "tree_qp_ipm_iter" if kind == "ipm" else "cvar_ipm_iter"
+    lockstep = np.max([r["times"] for r in ranks], axis=0)     # each step ends in an all_reduce
+    one_med = float(np.median(one_times))
+    line = {"phase": f"ensemble_{kind}_sharded", "config": "qp_overtake" if kind == "ipm"
+            else "cvar_merge", "B": SHARD_B, "ranks": 2, "backend": "gloo", "dtype": "float32",
+            "steps_timed": SHARD_WARM, "ipm_iters": iters,
+            "one_process": {"step_ms_median": one_med * 1e3,
+                            "step_ms_all": [t * 1e3 for t in one_times],
+                            "solves_per_s": SHARD_B / one_med},
+            "aggregate_solves_per_s": SHARD_B / float(np.median(lockstep)),
+            "aggregate_step_ms_median": float(np.median(lockstep)) * 1e3,
+            "ranks_detail": [{"rank": r["rank"], "device": r["device"], "rows": r["rows"],
+                              "step_ms_median": float(np.median(r["times"])) * 1e3,
+                              "solves_per_s": r["rows"] / float(np.median(r["times"])),
+                              "launches": r["launches"], "metrics": r["metrics"],
+                              "device_busy_ms_profiled": r["device_busy_ms"],
+                              "wall_ms_profiled": r["wall_ms_profiled"],
+                              "device_idle_share": r["device_idle_share"],
+                              "f64_check": r["f64_check"]} for r in ranks],
+            # both ranks' kernels share the card over the profiled (lock-stepped)
+            # step: 1 − their summed busy time over the wall bounds its idle
+            # share from below (kernels time-sliced between the two contexts
+            # count in both ranks' busy time)
+            "device_idle_share_both_lower_bound": max(
+                0.0, 1 - sum(r["device_busy_ms"] for r in ranks)
+                / max(r["wall_ms_profiled"] for r in ranks)),
+            "launch_seconds": launch_s, "tol_f64": 1e-12, **card}
+    emit(line)
+    want = iters * SHARD_WARM
+    for r in ranks:
+        if r["launches"][kernel] != want or not r["finite"]:
+            raise AssertionError(f"{line['phase']}: rank {r['rank']} launched {kernel} "
+                                 f"{r['launches'][kernel]} times (expected {want}), finite "
+                                 f"{r['finite']}")
+        if max(r["f64_check"]["max_abs_du_by_step"]) > 1e-12:
+            raise AssertionError(f"{line['phase']}: rank {r['rank']} against the one-process "
+                                 f"step: {r['f64_check']}")
+    if ranks[0]["metrics"] != ranks[1]["metrics"]:
+        raise AssertionError(f"{line['phase']}: the ranks' metrics differ")
+    return [r["launches"][kernel] for r in ranks]
+
+
+def run_sharded_episode_phase(dev, card):
+    """``overtake_episode_sharded``: the closed-loop overtake at SHARD_B
+    worlds as 2 gloo ranks, SHARD_EPISODE_STEPS warm world steps, beside the
+    one-process episode in this process, with the reduced metrics."""
+    from belief_planning_tpu_torch.envs.batched_highway import make_batched_overtake_fused
+    from belief_planning_tpu_torch.parallel.launch import launch
+    from belief_planning_tpu_torch.solvers.tree_qp_ipm import QPIPMConfig
+
+    pset, model, params = overtake_setup()
+    _, init_w, episode = make_batched_overtake_fused(overtake_cons(), model, params, "prox",
+                                                     ipm=QPIPMConfig(iters=8, gondzio=2),
+                                                     device=dev)
+    w1, _ = episode(init_w(SHARD_B, seed=0), 1, seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, traj = episode(w1, SHARD_EPISODE_STEPS, seed=2, t0=1)
+    _ = traj["u"].cpu()
+    one_s = time.perf_counter() - t0
+    del w1, traj
+    torch.cuda.empty_cache()
+    ranks = launch(shard_episode_rank, 2, "gloo", str(dev))
+    sec = max(r["seconds"] for r in ranks)
+    line = {"phase": "overtake_episode_sharded", "B": SHARD_B, "ranks": 2, "backend": "gloo",
+            "dtype": "float32", "steps_timed": SHARD_EPISODE_STEPS, "ipm_iters": 8,
+            "one_process_world_steps_per_s": SHARD_B * SHARD_EPISODE_STEPS / one_s,
+            "aggregate_world_steps_per_s": SHARD_B * SHARD_EPISODE_STEPS / sec,
+            "ranks_detail": [{k: v for k, v in r.items()} for r in ranks],
+            "launches_expected": 8 * SHARD_EPISODE_STEPS, **card}
+    emit(line)
+    for r in ranks:
+        if r["launches"]["tree_qp_ipm_iter"] != 8 * SHARD_EPISODE_STEPS or not r["finite"]:
+            raise AssertionError(f"overtake_episode_sharded: rank {r['rank']}: {r}")
+        if r["metrics"] != ranks[0]["metrics"]:
+            raise AssertionError("overtake_episode_sharded: the ranks' metrics differ")
+    m = ranks[0]["metrics"]
+    if m["count"] != SHARD_B * SHARD_EPISODE_STEPS or m["feasible_frac"] < 0.5:
+        raise AssertionError(f"overtake_episode_sharded: metrics {m}")
+    return [r["launches"]["tree_qp_ipm_iter"] for r in ranks]
+
+
+def run_sharded_kkt_phase(dev, card):
+    """``tree_kkt_sharded``: the m=4, NB=5 tree (1,024 leaf branches, N=2,
+    n=4, d=2) at T=KKT_T in f64, mp=2 on 2 gloo ranks, against the
+    unsharded level-blocked sweeps in this process. The sharded sweeps do
+    each element's arithmetic in the unsharded order (bit-identical on the
+    CPU, ``tests/test_torch_tree_shard.py``), but on the card the small
+    batched products go to cuBLAS, whose batched GEMM may round a batch of
+    another count differently: the phase reports whether the two are
+    equal, holds them to 1e-12, and reports each small-matrix product of the
+    leaf level's blocks on the whole batch against its two halves."""
+    from belief_planning_tpu_torch.parallel.launch import launch
+    from belief_planning_tpu_torch.solvers.tree_qp_pl import (
+        _factor_blocks,
+        _forward_blocks,
+        _linear_blocks,
+        _mm,
+        _mtm,
+        _mtv,
+        _mv,
+        _ublk,
+        build_levels,
+    )
+
+    N_, NB_, m_, n_, d_ = KKT_DIMS
+    plan, bl = kkt_case(dev)
+    levels = build_levels(plan)
+    in_bytes = sum(t.numel() * t.element_size() for t in bl.values())
+    # each small-matrix helper on the leaf level's blocks, whole against its
+    # two halves: which of them rounds a batch of another count differently
+    A_leaf = _ublk(bl["A"], levels[-1])[:, 0].contiguous()            # (1024, 4, 4, T)
+    v_leaf = _ublk(bl["qx"], levels[-1])[:, 0].contiguous()           # (1024, 4, T)
+    half = A_leaf.shape[0] // 2
+    split = {}
+    for nm, fn, b_ in (("_mm", _mm, A_leaf), ("_mtm", _mtm, A_leaf), ("_mv", _mv, v_leaf),
+                       ("_mtv", _mtv, v_leaf)):
+        parts = torch.cat([fn(A_leaf[:half], b_[:half]), fn(A_leaf[half:], b_[half:])])
+        split[nm] = (fn(A_leaf, b_) - parts).abs().max().item()
+
+    def unsharded():
+        K_l, Hinv_l, Acl_l = _factor_blocks(levels, bl["Qx2"], bl["Dab2"], bl["Ru2"],
+                                            bl["Pterm2"], bl["A"], bl["B"], n_, d_, m_)
+        kff_l = _linear_blocks(levels, K_l, Hinv_l, Acl_l, bl["B"], bl["qx"], bl["qu"],
+                               bl["qterm"], n_, d_, m_)
+        return _forward_blocks(levels, K_l, Acl_l, bl["B"], kff_l, n_, d_, m_, KKT_T)
+
+    (dx_ref, du_ref), one_times = _timed(unsharded, KKT_REPS)
+    dx_ref, du_ref = dx_ref.cpu(), du_ref.cpu()
+    out_bytes = (dx_ref.numel() + du_ref.numel()) * 8
+    del bl
+    torch.cuda.empty_cache()
+    ranks = launch(shard_kkt_rank, 2, "gloo", str(dev))
+    dx_l, du_l = ranks[0].pop("whole")
+    flat = lambda ls: torch.cat([b.reshape((-1,) + b.shape[2:]) for b in ls], dim=0)
+    dx, du = flat(dx_l), flat(du_l)
+    equal = torch.equal(dx, dx_ref) and torch.equal(du, du_ref)
+    line = {"phase": "tree_kkt_sharded", "N": N_, "NB": NB_, "m": m_, "n": n_, "d": d_,
+            "leaf_branches": m_ ** NB_, "totalu": plan.topo.totalu, "T": KKT_T,
+            "dtype": "float64", "mesh": {"dp": 1, "mp": 2}, "backend": "gloo",
+            "input_bytes": in_bytes, "A_bytes": plan.topo.totalu * n_ * n_ * KKT_T * 8,
+            "output_bytes": out_bytes,
+            "one_process_ms": [t * 1e3 for t in one_times],
+            "ranks_detail": ranks, "equal": equal,
+            "max_abs_diff": max((dx - dx_ref).abs().max().item(),
+                                (du - du_ref).abs().max().item()),
+            "tol": 1e-12, "helpers_whole_vs_halves_max_abs_diff": split,
+            "bound_ms_one_process": (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3, **card}
+    emit(line)
+    if not line["max_abs_diff"] <= 1e-12:
+        raise AssertionError(f"tree_kkt_sharded: sharded against unsharded: max |Δ| "
+                             f"{line['max_abs_diff']:.3e}")
+
+
+def run_nccl_phase(dev, card):
+    """``nccl_world1``: the QP ensemble on one NCCL rank, SHARD_B trees."""
+    from belief_planning_tpu_torch.parallel.launch import launch
+
+    (r,) = launch(shard_ensemble_rank, 1, "nccl", None, args=("ipm",))
+    line = {"phase": "nccl_world1", "B": SHARD_B, "backend": r["backend"], "device": r["device"],
+            "step_ms_median": float(np.median(r["times"])) * 1e3,
+            "solves_per_s": SHARD_B / float(np.median(r["times"])),
+            "launches": r["launches"], "metrics": r["metrics"], "f64_check": r["f64_check"],
+            "device_idle_share": r["device_idle_share"], **card}
+    emit(line)
+    if (r["backend"] != "nccl" or r["launches"]["tree_qp_ipm_iter"] != 8 * SHARD_WARM
+            or not r["finite"] or max(r["f64_check"]["max_abs_du_by_step"]) > 1e-12):
+        raise AssertionError(f"nccl_world1: {line}")
+    return r["launches"]["tree_qp_ipm_iter"]
+
+
+def run_dryrun_phase(dev, card):
+    """``dryrun_multichip(2)`` with 2 gloo ranks on the card."""
+    from belief_planning_tpu_torch.entry import dryrun_multichip
+
+    reports = dryrun_multichip(2, "gloo", str(dev))
+    emit({"phase": "dryrun_multichip", "n_devices": 2, "reports": reports, **card})
+    for r in reports:
+        if r["launches"] != {"tree_qp_ipm_iter": 16, "cvar_ipm_iter": 12}:
+            raise AssertionError(f"dryrun_multichip: rank {r['rank']} launches {r['launches']}")
+    return reports
+
+
+def run_slice11_phases(dev, card):
+    """Slice 11's phases, one after another; returns the ranks' K1 and K2
+    launches by path for the kernels line."""
+    t0 = time.perf_counter()
+    k1 = {"ensemble_ipm_sharded": run_sharded_ensemble_phase(dev, card, "ipm")}
+    k2 = {"ensemble_cvar_sharded": run_sharded_ensemble_phase(dev, card, "cvar")}
+    k1["overtake_episode_sharded"] = run_sharded_episode_phase(dev, card)
+    run_sharded_kkt_phase(dev, card)
+    k1["nccl_world1"] = run_nccl_phase(dev, card)
+    reports = run_dryrun_phase(dev, card)
+    k1["dryrun_multichip"] = [r["launches"]["tree_qp_ipm_iter"] for r in reports]
+    k2["dryrun_multichip"] = [r["launches"]["cvar_ipm_iter"] for r in reports]
+    emit({"phase": "slice11_seconds", "seconds": time.perf_counter() - t0, **card})
+    return k1, k2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -2598,7 +3066,11 @@ def main() -> int:
     run_slice10_phases(dev, card, Launches(K, K2, K3, K5))
     emit({"phase": "slice10_seconds", "seconds": time.perf_counter() - t_slice10, **card})
 
-    # ---- 12. kernels line, card line, result ------------------------------------
+    # ---- 12. slice 11: the rank-sharded ensembles, tree KKT and dryrun ------------
+    k1_sharded, k2_sharded = run_slice11_phases(dev, card)
+    cvar_lines["launches_by_path"] = {"main_path": cvar_lines["launches"], **k2_sharded}
+
+    # ---- 13. kernels line, card line, result ------------------------------------
     emit({"kernels": [{
         "name": "tree_qp_ipm_iter",
         "route": "cuda",
@@ -2612,7 +3084,7 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "launches_by_path": {"main_path": main_launches, "quadruped": quad_entries[0]["launches"],
-                             "overtake_episode": overtake_launches},
+                             "overtake_episode": overtake_launches, **k1_sharded},
         "instantiations": [{"dims": list(K.dims[0]), "B": BENCH_B, "launches": main_launches,
                             "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                             "bound_by": bound_by, "max_abs_err": f32_err}, *quad_entries],

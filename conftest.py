@@ -30,7 +30,10 @@ later full run of the same command (839.6 s, 389 passed); the seven slice-10
 files (``test_torch_tree_admm.py``, ``test_torch_admm_oracle.py``,
 ``test_torch_admm_mpc.py``, ``test_torch_robust_mpc.py``,
 ``test_torch_hmm.py``, ``test_torch_hmm_admm.py``,
-``test_torch_quad_env.py``) from a later one (917.6 s, 435 passed).
+``test_torch_quad_env.py``) from a later one (917.6 s, 435 passed); the
+five slice-11 files (``test_torch_parallel.py``, ``test_torch_examples.py``,
+``test_torch_tree_shard.py``, ``test_torch_utils.py``,
+``test_torch_viz.py``) from a later one (912.6 s, 487 passed).
 
 This file imports neither jax nor torch.
 """
@@ -77,6 +80,11 @@ FILE_SECONDS = {
     "tests/test_torch_quad_env.py": 34.9,
     "tests/test_torch_admm_oracle.py": 9.1,
     "tests/test_torch_hmm_admm.py": 10.7,
+    "tests/test_torch_parallel.py": 50.0,
+    "tests/test_torch_examples.py": 50.2,
+    "tests/test_torch_tree_shard.py": 33.0,
+    "tests/test_torch_utils.py": 7.6,
+    "tests/test_torch_viz.py": 4.7,
     "tests/test_torch_branch_mpc.py": 43.1,
     "tests/test_torch_kernel_cpu_build.py": 31.8,
     "tests/test_torch_cvar_admm.py": 31.2,

@@ -240,3 +240,35 @@ def test_slice10_entry_points_default_to_cuda(name):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert first(make(device="cpu")).device.type == "cpu"
+
+
+def _slice11_calls():
+    from belief_planning_tpu_torch.controllers.branch_mpc import MPCCarry
+    from belief_planning_tpu_torch.entry import dryrun_multichip
+    from belief_planning_tpu_torch.examples import main_branch, main_quadruped
+    from belief_planning_tpu_torch.parallel.launch import launch
+    from belief_planning_tpu_torch.utils.checkpoint import load_carry
+
+    carry = MPCCarry(u_lin=torch.zeros(1, 2), p=torch.zeros(1, 1), old_input=torch.zeros(1, 2),
+                     initialized=torch.zeros(1, dtype=torch.bool))
+    return {
+        "launch": lambda: launch(print, 2),
+        "dryrun_multichip": lambda: dryrun_multichip(2),
+        "load_carry": lambda: load_carry("unused.npz", carry),
+        "sim_overtake": lambda: main_branch.sim_overtake(T=0.1),
+        "sim_merge": lambda: main_branch.sim_merge(T=0.1),
+        "quadruped_main": lambda: main_quadruped.main(T=0.2),
+    }
+
+
+@pytest.mark.parametrize("name", ["launch", "dryrun_multichip", "load_carry", "sim_overtake",
+                                  "sim_merge", "quadruped_main"])
+def test_slice11_entry_points_default_to_cuda(name):
+    """The launcher (rank r on ``cuda:r``), ``dryrun_multichip``,
+    ``load_carry`` and the examples run on CUDA unless the caller passes a
+    device: without one they raise before any work (the card's side is
+    ``chip_smoke.py``'s)."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the CPU-only machine's refusal; the card runs these in chip_smoke.py")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _slice11_calls()[name]()
