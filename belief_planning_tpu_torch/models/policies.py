@@ -18,7 +18,8 @@ from belief_planning_tpu_torch.ops.softmath import softmax_pair
 
 class RefLine(NamedTuple):
     """Piecewise-linear lookup table (merge ramp): ``jnp.interp`` semantics,
-    constant beyond the end knots, on tensors of any shape."""
+    constant beyond the end knots, on tensors of any shape. A table with
+    leading dims ``(..., K)`` (one table a lane) broadcasts against ``x``."""
 
     xs: Any  # (K,) knot X coordinates (ascending)
     ys: Any  # (K,) values (Y or psi)
@@ -26,6 +27,8 @@ class RefLine(NamedTuple):
     def __call__(self, x):
         xs = torch.as_tensor(self.xs, dtype=x.dtype, device=x.device)
         ys = torch.as_tensor(self.ys, dtype=x.dtype, device=x.device)
+        if xs.dim() > 1:
+            return self._per_lane(x, xs, ys)
         flat = x.reshape(-1)
         i = torch.clamp(torch.searchsorted(xs, flat.contiguous(), right=True), 1,
                         xs.shape[0] - 1)
@@ -36,6 +39,25 @@ class RefLine(NamedTuple):
         f = torch.where(dx0, y0, y0 + ((x - x0) / torch.where(dx0, torch.ones_like(dx), dx)) * dy)
         f = torch.where(x < xs[0], ys[0], f)
         return torch.where(x > xs[-1], ys[-1], f)
+
+    @staticmethod
+    def _per_lane(x, xs, ys):
+        """The lookup with tables ``(..., K)`` whose leading dims broadcast
+        against ``x``: each element reads its own row."""
+        K = xs.shape[-1]
+        shape = torch.broadcast_shapes(xs.shape[:-1], x.shape)
+        xb = x.expand(shape)
+        rows = lambda t: t.expand(shape + (K,)).reshape(-1, K)
+        xr, yr = rows(xs), rows(ys)
+        i = torch.clamp(torch.searchsorted(xr, xb.reshape(-1, 1).contiguous(), right=True), 1,
+                        K - 1)
+        pick = lambda t, j: t.gather(1, j).reshape(shape)
+        x0, y0 = pick(xr, i - 1), pick(yr, i - 1)
+        dx, dy = pick(xr, i) - x0, pick(yr, i) - y0
+        dx0 = torch.abs(dx) <= _spacing_eps(x.dtype)
+        f = torch.where(dx0, y0, y0 + ((xb - x0) / torch.where(dx0, torch.ones_like(dx), dx)) * dy)
+        f = torch.where(xb < xs[..., 0], ys[..., 0], f)
+        return torch.where(xb > xs[..., -1], ys[..., -1], f)
 
 
 def _spacing_eps(dtype):
@@ -173,7 +195,8 @@ def lane_flags(params, in_axes):
     leading lane axis, from a vmap in-axes prefix as the JAX package takes
     it (``policy_in_axes``): ``None`` shares a policy's params, or one
     field's, across lanes; ``0`` gives them a leading lane axis, e.g.
-    ``(None, None, LaneChangeParams(x_target=0))``. Returns one tuple of
+    ``(None, None, LaneChangeParams(x_target=0))``; a :class:`RefLine` leaf
+    marked 0 is a table a lane (``xs, ys (Bt, K)``). Returns one tuple of
     bools a policy (``None`` for a ``None`` policy), or ``None`` when no leaf
     is per-lane."""
     if in_axes is None:
@@ -190,8 +213,6 @@ def lane_flags(params, in_axes):
         for name, v, a in zip(p._fields, p, axes):
             if a is not None and a != 0:
                 raise ValueError(f"policy_in_axes: {name} has axis {a!r}; only None or 0")
-            if a == 0 and isinstance(v, RefLine):
-                raise NotImplementedError(f"policy_in_axes: a per-lane reference line ({name})")
             f.append(a == 0 and v is not None)
         flags.append(tuple(f))
     return tuple(flags) if any(any(f) for f in flags if f is not None) else None
@@ -213,13 +234,19 @@ def with_lane_leaves(params, flags, leaves):
                  for p, f in zip(params, flags))
 
 
+def leaf_map(fn, v):
+    """``fn`` on a leaf's tensor, or on each table of a :class:`RefLine`."""
+    return RefLine(*(fn(a) for a in v)) if isinstance(v, RefLine) else fn(v)
+
+
 def lanes_over(params, flags, lead):
     """``params`` with each per-lane leaf ``(Bt, ...)`` viewed as ``(Bt, 1,
     ..., 1, ...)``, to broadcast against states of leading dims ``lead``
     (``lead[0] == Bt``)."""
     ones = (1,) * (len(lead) - 1)
-    return with_lane_leaves(params, flags, [a.reshape(a.shape[:1] + ones + a.shape[1:])
-                                            for a in lane_leaves(params, flags)])
+    return with_lane_leaves(params, flags, [
+        leaf_map(lambda a: a.reshape(a.shape[:1] + ones + a.shape[1:]), v)
+        for v in lane_leaves(params, flags)])
 
 
 def cast_params(params, dtype, device):

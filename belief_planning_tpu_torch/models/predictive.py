@@ -22,6 +22,7 @@ from belief_planning_tpu_torch.models.policies import (
     PolicySet,
     lane_leaves,
     lanes_over,
+    leaf_map,
     with_lane_leaves,
 )
 from belief_planning_tpu_torch.ops.linearize import linearize_dynamics
@@ -97,8 +98,9 @@ class PredictiveModel:
             return f(xx), jacfwd(f)(xx)
         lead = x.shape[:-1]
         k = len(lead)
-        per_lane = [a.expand(lead + a.shape[k:]).reshape((-1,) + a.shape[k:])
-                    for a in lane_leaves(lanes_over(policy_params, lanes, lead), lanes)]
+        flat = lambda a: a.expand(lead + a.shape[k:]).reshape((-1,) + a.shape[k:])
+        per_lane = [leaf_map(flat, v)
+                    for v in lane_leaves(lanes_over(policy_params, lanes, lead), lanes)]
         return _batched(single, x, z, *per_lane)
 
     def col_raw(self, x, z):

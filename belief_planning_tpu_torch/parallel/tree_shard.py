@@ -21,10 +21,10 @@ A level is sharded iff mp divides its branch count (the root only when mp
 is 1). Replicated levels are computed on every rank of an mp group. Every
 element goes through the ops of the unsharded level-blocked sweeps
 (``solvers/tree_qp_pl._factor_blocks``, ``_linear_blocks``,
-``_forward_blocks``) in the same order, so on the CPU the results are
-bit-identical. On a CUDA device the batched small products (through
-cuBLAS) may round a batch of another count differently, and the results
-part by a few ulps (2.0e-15 on the m=4, NB=5 tree at T=256).
+``_forward_blocks``) in the same order, with the small-matrix products
+``FIXED_ORDER`` (each a sum in a fixed order, whatever the batch), so the
+results are bit-identical to the unsharded sweeps run with those products
+(``pr=FIXED_ORDER``), on the CPU and on a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,10 +36,9 @@ import torch
 from belief_planning_tpu_torch.parallel.ensemble import Mesh, all_gather
 from belief_planning_tpu_torch.solvers.tree_qp import StagePlan
 from belief_planning_tpu_torch.solvers.tree_qp_pl import (
+    FIXED_ORDER,
     LevelMeta,
     _fold0,
-    _mtv,
-    _mv,
     _repeat0,
     _riccati_step,
     _ublk,
@@ -106,7 +105,7 @@ def _factor_local(levels, comms, Qx2_l, Dab2_l, Ru2_l, Pterm2, A_l, B_l, n, d):
         Ks, His, Acls = [], [], []
         for j in range(mt.l - 1, -1, -1):
             W, K, Hinv, Acl = _riccati_step(W, Qx2_l[k][:, j], Dab2_l[k][:, j], Ru2_l[k][:, j],
-                                            A_l[k][:, j], B_l[k][:, j], n)
+                                            A_l[k][:, j], B_l[k][:, j], n, FIXED_ORDER)
             Ks.append(K)
             His.append(Hinv)
             Acls.append(Acl)
@@ -118,6 +117,7 @@ def _factor_local(levels, comms, Qx2_l, Dab2_l, Ru2_l, Pterm2, A_l, B_l, n, d):
 
 def _linear_local(levels, comms, K_l, Hinv_l, Acl_l, B_l, qx_l, qu_l, qterm, n, d):
     """Backward linear sweep on local blocks; feed-forward blocks kff."""
+    pr = FIXED_ORDER
     NB = len(levels) - 1
     kff_l = [None] * (NB + 1)
     p = None
@@ -129,9 +129,9 @@ def _linear_local(levels, comms, K_l, Hinv_l, Acl_l, B_l, qx_l, qu_l, qterm, n, 
             p = comms.fold_up(p, k + 1)
         kffs = []
         for j in range(mt.l - 1, -1, -1):
-            l_u = qu_l[k][:, j] + _mtv(B_l[k][:, j], p[:, :n]) + p[:, n:]
-            kffs.append(-_mv(Hinv_l[k][:, j], l_u))
-            p = _mtv(Acl_l[k][:, j], p) + _mtv(K_l[k][:, j], qu_l[k][:, j])
+            l_u = qu_l[k][:, j] + pr.mtv(B_l[k][:, j], p[:, :n]) + p[:, n:]
+            kffs.append(-pr.mv(Hinv_l[k][:, j], l_u))
+            p = pr.mtv(Acl_l[k][:, j], p) + pr.mtv(K_l[k][:, j], qu_l[k][:, j])
             p[:, :n] += qx_l[k][:, j]
         kff_l[k] = torch.stack(kffs[::-1], dim=1)
     return kff_l
@@ -140,6 +140,7 @@ def _linear_local(levels, comms, K_l, Hinv_l, Acl_l, B_l, qx_l, qu_l, qterm, n, 
 def _forward_local(levels, comms, K_l, Acl_l, B_l, kff_l, n, d, T):
     """Forward rollout from a zero root state; per-level dx ``(nb_loc, lx,
     n, T)`` and du ``(nb_loc, l, d, T)`` blocks."""
+    mv = FIXED_ORDER.mv
     xi = B_l[0].new_zeros((1, n + d, T))
     dx_l, du_l = [], []
     for k, mt in enumerate(levels):
@@ -148,9 +149,9 @@ def _forward_local(levels, comms, K_l, Acl_l, B_l, kff_l, n, d, T):
         us, xs = [], []
         for j in range(mt.l):
             kf = kff_l[k][:, j]
-            us.append(_mv(K_l[k][:, j], xi) + kf)
+            us.append(mv(K_l[k][:, j], xi) + kf)
             xs.append(xi[:, :n])
-            xi = _mv(Acl_l[k][:, j], xi) + torch.cat([_mv(B_l[k][:, j], kf), kf], dim=1)
+            xi = mv(Acl_l[k][:, j], xi) + torch.cat([mv(B_l[k][:, j], kf), kf], dim=1)
         if mt.leaf:
             xs.append(xi[:, :n])
         du_l.append(torch.stack(us, dim=1))

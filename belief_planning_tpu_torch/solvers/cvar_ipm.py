@@ -47,7 +47,7 @@ from belief_planning_tpu_torch.solvers.tree_qp import (
     tree_lqr_forward,
     tree_lqr_linear,
 )
-from belief_planning_tpu_torch.solvers.tree_qp_ipm import _bc, _tree_max, _tree_sum
+from belief_planning_tpu_torch.solvers.tree_qp_ipm import _bc, _tree_max, _tree_min, _tree_sum
 from belief_planning_tpu_torch.solvers.tree_qp_ipm import max_step
 from belief_planning_tpu_torch.tree.engine import TreeState
 from belief_planning_tpu_torch.utils.device import resolve_device
@@ -55,12 +55,13 @@ from belief_planning_tpu_torch.utils.device import resolve_device
 
 @dataclass(frozen=True)
 class CVaRIPMConfig:
-    """Every field keeps the reference's name and default. The fused
+    """Every field keeps the reference's name, default and meaning. The fused
     iteration (``solvers/cvar_pl.py``) reads ``iters``, ``reg``, ``tau``,
     ``a_cap_early``, ``early_iters``, ``w_max``, ``w_max_f32``, ``gap_tol``,
     ``sl_min`` and the Gondzio fields; ``mxu`` only chose the TPU unit for
-    some contractions and changes no result. The options named in
-    ``_DIAG_DEFAULTS`` are not ported and must keep their defaults."""
+    some contractions and changes no result. The diagnostic options
+    (``resid``, ``recovery``, ``neighborhood``, ``split_step``, ``recenter``,
+    ``recenter_tol``, ``diag_extra``) act only in :func:`cvar_ipm_solve`."""
 
     iters: int = 40
     reg: float = 1e-8
@@ -81,28 +82,40 @@ class CVaRIPMConfig:
     outer_dtype: str = "same"
     mxu: bool = False            # TPU matrix-unit routing; no effect on the result
     sl_min: float = 0.3          # slack floor of the starting point
-    resid: str = "recompute"     # diagnostic option, not ported (see _DIAG_DEFAULTS)
-    recovery: str = "direct"     # diagnostic option, not ported
+    # Primal residuals: "recompute" re-forms r = A·x + sl − b (and rq = q(v) +
+    # sq) from the iterate each iteration; "carried" threads them through the
+    # loop by the exact contractions r⁺ = (1−α)·r and rq⁺ = (1−α)·rq +
+    # α²·quad(dv) (no cancellation on active rows).
+    resid: str = "recompute"
+    # Dual recovery: "direct" is dλ = (−rc − λ·dsl)/sl; "stable" the same
+    # algebra as dλ = −λ·((sl + dsl)/sl) − corr/sl, exact in floating point
+    # where fraction-to-boundary is active (dsl ≈ −sl).
+    recovery: str = "direct"
     # Gondzio multiple-centrality correctors per iteration: each reuses the
     # factor on a pure complementarity right-hand side that pushes outlier
     # products back into [bmin·σμ, bmax·σμ], accepted per tree if the step grows
     gondzio: int = 0
     gondzio_bmin: float = 0.1
     gondzio_bmax: float = 10.0
-    neighborhood: float = 0.0    # diagnostic option, not ported
-    split_step: bool = False     # diagnostic option, not ported
-    recenter: int = 0            # diagnostic option, not ported
+    # Wide-neighbourhood (N∞⁻(γ)) safeguard: the largest of 12 geometric
+    # fractions of the step whose smallest product is ≥ γ·μ(α), or no
+    # smaller than now; 0 disables.
+    neighborhood: float = 0.0
+    # Separate primal (slacks, iterate) and dual (multipliers) step lengths,
+    # each limited by its own families only.
+    split_step: bool = False
+    # Barrier restart: after two consecutive steps below ``recenter_tol``,
+    # rebuild every slack from the current rows and reset λ := μ/sl, at most
+    # ``recenter`` times a tree; 0 disables (acts only with resid="recompute").
+    recenter: int = 0
     recenter_tol: float = 1e-5
-    diag_extra: bool = False     # diagnostic option, not ported
+    # Extended per-iteration diagnostics: per-family step limits, centrality
+    # spread, non-finite bitmasks, slack and multiplier extremes, factor health.
+    diag_extra: bool = False
 
 
-# The options of the reference's cvar_ipm_solve that serve only its
-# diagnostic scripts (scripts/cvar_f32_diag.py, scripts/cvar_hard_oracle.py):
-# carried residuals, stable dual recovery, the wide-neighbourhood search,
-# split primal / dual steps, jam recentering and extended diagnostics. They
-# are not ported; a value other than the default raises.
-_DIAG_DEFAULTS = {"resid": "recompute", "recovery": "direct", "neighborhood": 0.0,
-                  "split_step": False, "recenter": 0, "diag_extra": False}
+# the multipliers' places in the iterate (x, u, s, r, sl1, λ1, …, sq, λq)
+_DUAL = (5, 7, 9, 11, 13)
 
 
 def _cone_maps(cplan: CVaRPlan):
@@ -149,13 +162,11 @@ def cvar_ipm_solve(cplan: CVaRPlan, ts: TreeState, Q, R, Qslack, xRef, ralpha, F
 
     Returns ``(x, u, s, r, aux)`` in the tree's dtype; ``aux`` holds ``J``
     and ``gap`` ``(Bt,)``, ``risk``, ``gaps (Bt, iters)`` and ``diag``, a
-    dict of ``(Bt, iters)`` per-iteration diagnostics.
+    dict of ``(Bt, iters)`` per-iteration diagnostics (the reference's keys;
+    ``diag_extra`` adds its extended ones). With ``recenter`` it also holds
+    ``recenters (Bt,)``, the barrier restarts taken; with ``neighborhood``,
+    ``nbr_cuts (Bt,)``, the iterations whose step the search shortened.
     """
-    for name, default in _DIAG_DEFAULTS.items():
-        if getattr(cfg, name) != default:
-            raise NotImplementedError(
-                f"CVaRIPMConfig.{name}={getattr(cfg, name)!r}: the reference's diagnostic "
-                "options are not ported yet (ROADMAP.md Queue A item 8)")
     dev = resolve_device(device)
     ts = TreeState(*(a.to(dev) for a in ts))
     plan = cplan.plan
@@ -250,6 +261,13 @@ def cvar_ipm_solve(cplan: CVaRPlan, ts: TreeState, Q, R, Qslack, xRef, ralpha, F
         return (ein("tkj,tj->tk", mask_j, per_stage_cost(x_nodes, u, s))
                 + ein("tkr,tr->tk", f_risk_j, risk))
 
+    def cone_quad(dx_nodes, du):
+        """The pure quadratic part of each scaled cone along a step (Bt, K):
+        q_k(v + α·dv) = q_k(v) + α·∇q_k·dv + α²·cone_quad(dv)_k exactly."""
+        xc = dx_nodes[:, cx_nodes]
+        per = ein("tbi,tij,tbj->tb", xc, Qx_cone, xc) + ein("tbi,ij,tbj->tb", du, R, du)
+        return ein("tkj,tj->tk", mask_j, per)
+
     def obj_val(u, s, risk):
         return (ein("ti,ij,tj->t", u[:, 0], R, u[:, 0]) + risk[:, 0]
                 + Qslack1 * torch.sum(s[:, 0], dim=-1))
@@ -340,7 +358,8 @@ def cvar_ipm_solve(cplan: CVaRPlan, ts: TreeState, Q, R, Qslack, xRef, ralpha, F
         Krk[:, :nrisk, nrisk:] = Req.transpose(-1, -2)
         Krk[:, nrisk:, :nrisk] = Req
         Krk[:, nrisk:, nrisk:] = -cfg.reg * torch.eye(bdim, dtype=dtype, device=dev)
-        Krk_inv = torch.linalg.inv(Krk.to(sdt)).to(dtype)[:, :nrisk, :nrisk]
+        Krk_full = torch.linalg.inv(Krk.to(sdt))
+        Krk_inv = Krk_full.to(dtype)[:, :nrisk, :nrisk]
 
         g = Grads(x_nodes, u)
         wk = w1 / kap
@@ -422,7 +441,15 @@ def cvar_ipm_solve(cplan: CVaRPlan, ts: TreeState, Q, R, Qslack, xRef, ralpha, F
                 dx, du, dsv, dr = dx + ex_, du + eu_, dsv + es_, dr + er_
             return dx, du, dsv, dr
 
-        return kkt_solve, g
+        dbg = {}
+        if cfg.diag_extra:
+            fin = lambda *ts_: torch.stack([torch.isfinite(t).reshape(Bt, -1).all(1)
+                                            for t in ts_]).all(0).to(dtype)
+            dbg = {"finK": fin(Krk_full), "finW": fin(Wm), "finZ": fin(Zx, Zu, Zs, Zr),
+                   "finF": sum((~torch.isfinite(f)).reshape(Bt, -1).sum(1)
+                               for f in fac if f is not None).to(dtype),
+                   "condW": _tree_max(torch.abs(Wm))}
+        return kkt_solve, g, dbg
 
     def gap_of(sl1_, lam1_, sl2_, lam2_, sl3_, lam3_, sl4_, lam4_, sq_, lq_):
         return (_tree_sum(sl1_ * lam1_) + _tree_sum(sl2_ * lam2_) + _tree_sum(sl3_ * lam3_)
@@ -430,19 +457,42 @@ def cvar_ipm_solve(cplan: CVaRPlan, ts: TreeState, Q, R, Qslack, xRef, ralpha, F
 
     def iteration(it_idx, carry):
         ((x_c, u_c, s_c, r_c, sl1_, lam1_, sl2_, lam2_, sl3_, lam3_, sl4_, lam4_, sq_, lq_),
-         best) = carry
+         res_c, (jam_cnt, rc_used, nbr_cuts), best) = carry
 
-        rows1 = ein("tbrn,tbn->tbr", Fxc, x_c[:, cx_nodes]) - s_c
-        rows2 = ein("rn,tbn->tbr", Fu, u_c)
-        qv = cone_vals(x_c, u_c, s_c, r_c)
-        r1 = rows1 + sl1_ - b1
-        r2 = rows2 + sl2_ - bu
-        r3 = -s_c + sl3_
-        r4 = -r_c[:, sgn_idx] + sl4_
-        rq = qv + sq_
+        if cfg.resid == "carried":
+            r1, r2, r3, r4, rq = res_c
+        else:
+            rows1 = ein("tbrn,tbn->tbr", Fxc, x_c[:, cx_nodes]) - s_c
+            rows2 = ein("rn,tbn->tbr", Fu, u_c)
+            qv = cone_vals(x_c, u_c, s_c, r_c)
+            if cfg.recenter > 0:
+                # barrier restart after two jammed steps: the slacks rebuilt
+                # from the current rows by the cold-start rule, λ = μ/sl
+                do_rc = (jam_cnt >= 2.0) & (rc_used < cfg.recenter)
+                mu_c = torch.clamp(gap_of(sl1_, lam1_, sl2_, lam2_, sl3_, lam3_, sl4_, lam4_,
+                                          sq_, lq_), min=1e-3)
+
+                def rst(sl_old, lam_old, feas, floor):
+                    sl_new = torch.where(_bc(do_rc, sl_old), torch.clamp(feas, min=floor),
+                                         sl_old)
+                    return sl_new, torch.where(_bc(do_rc, sl_old), _bc(mu_c, sl_new) / sl_new,
+                                               lam_old)
+
+                sl1_, lam1_ = rst(sl1_, lam1_, b1 - rows1, cfg.sl_min)
+                sl2_, lam2_ = rst(sl2_, lam2_, bu - rows2, cfg.sl_min)
+                sl3_, lam3_ = rst(sl3_, lam3_, s_c, cfg.sl_min)
+                sl4_, lam4_ = rst(sl4_, lam4_, r_c[:, sgn_idx], cfg.sl_min)
+                sq_, lq_ = rst(sq_, lq_, -qv, 0.3)
+                rc_used = rc_used + torch.where(do_rc, 1.0, 0.0)
+                jam_cnt = torch.where(do_rc, 0.0, jam_cnt)
+            r1 = rows1 + sl1_ - b1
+            r2 = rows2 + sl2_ - bu
+            r3 = -s_c + sl3_
+            r4 = -r_c[:, sgn_idx] + sl4_
+            rq = qv + sq_
         gap = gap_of(sl1_, lam1_, sl2_, lam2_, sl3_, lam3_, sl4_, lam4_, sq_, lq_)
 
-        kkt_solve, g = newton_factor(x_c, u_c, lam1_, sl1_, lam2_, sl2_, lam3_, sl3_,
+        kkt_solve, g, nf_dbg = newton_factor(x_c, u_c, lam1_, sl1_, lam2_, sl2_, lam3_, sl3_,
                                              lam4_, sl4_, lq_, sq_)
 
         # dual residual: objective gradient + Aᵀλ + Σ λ_k ∇q_k
@@ -467,30 +517,30 @@ def cvar_ipm_solve(cplan: CVaRPlan, ts: TreeState, Q, R, Qslack, xRef, ralpha, F
             out[:, sgn_idx] += v
             return out
 
-        def direction(rcs):
+        rs = (r1, r2, r3, r4, rq)
+
+        def direction(rcs, corrs):
             # eliminate dsl/dλ per linear family and dsq/dλq per cone:
-            # dλ = (−rc − λ·dsl)/sl, dsl = −r_fam − (row direction), rc = sl∘λ + corr
-            rc1, rc2, rc3, rc4, rcq = rcs
-            ex1 = (-rc1 + lam1_ * r1) / sl1_
-            ex2 = (-rc2 + lam2_ * r2) / sl2_
-            ex3 = (-rc3 + lam3_ * r3) / sl3_
-            ex4 = (-rc4 + lam4_ * r4) / sl4_
-            exq = (-rcq + lq_ * rq) / sq_
+            # dλ = (−rc − λ·dsl)/sl, dsl = −r_fam − (row direction), rc = sl∘λ + corr;
+            # "stable" recovery evaluates the same algebra as
+            # dλ = −λ·((sl + dsl)/sl) − corr/sl
+            stable = cfg.recovery == "stable"
+            if stable:
+                ex1, ex2, ex3, ex4, exq = (vals[i + 1] * ((r_ - vals[i]) / vals[i]) - c_ / vals[i]
+                                           for i, r_, c_ in zip(range(0, 10, 2), rs, corrs))
+            else:
+                ex1, ex2, ex3, ex4, exq = ((-rc_ + vals[i + 1] * r_) / vals[i]
+                                           for i, r_, rc_ in zip(range(0, 10, 2), rs, rcs))
             dx, du, dsv, dr, drow1, drow2, dq = solve_rows(
                 rd_x + ein("tbrn,tbr->tbn", Fxc, ex1), rd_u + ein("rn,tbr->tbn", Fu, ex2),
                 rd_s - ex1 - ex3, rd_r + sgn_add(-ex4), exq)
-            dsl1 = -r1 - drow1
-            dsl2 = -r2 - drow2
-            dsl3 = -r3 + dsv
-            dsl4 = -r4 + dr[:, sgn_idx]
-            dsq = -rq - dq
-            dlam1 = (-rc1 - lam1_ * dsl1) / sl1_
-            dlam2 = (-rc2 - lam2_ * dsl2) / sl2_
-            dlam3 = (-rc3 - lam3_ * dsl3) / sl3_
-            dlam4 = (-rc4 - lam4_ * dsl4) / sl4_
-            dlq = (-rcq - lq_ * dsq) / sq_
-            return (dx, du, dsv, dr, dsl1, dlam1, dsl2, dlam2, dsl3, dlam3, dsl4, dlam4,
-                    dsq, dlq)
+            dsls = (-r1 - drow1, -r2 - drow2, -r3 + dsv, -r4 + dr[:, sgn_idx], -rq - dq)
+            out = [dx, du, dsv, dr]
+            for i, dsl, rc_, c_ in zip(range(0, 10, 2), dsls, rcs, corrs):
+                sl_, lam_ = vals[i], vals[i + 1]
+                out += [dsl, -lam_ * ((sl_ + dsl) / sl_) - c_ / sl_ if stable
+                        else (-rc_ - lam_ * dsl) / sl_]
+            return tuple(out)
 
         def direction_pure(rcs):
             """Pure complementarity correction (zero primal and dual
@@ -506,8 +556,9 @@ def cvar_ipm_solve(cplan: CVaRPlan, ts: TreeState, Q, R, Qslack, xRef, ralpha, F
                     dsl2, (-rc2 - lam2_ * dsl2) / sl2_, dsl3, (-rc3 - lam3_ * dsl3) / sl3_,
                     dsl4, (-rc4 - lam4_ * dsl4) / sl4_, dsq, (-rcq - lq_ * dsq) / sq_)
 
-        da = direction((sl1_ * lam1_, sl2_ * lam2_, sl3_ * lam3_, sl4_ * lam4_, sq_ * lq_))
         vals = (sl1_, lam1_, sl2_, lam2_, sl3_, lam3_, sl4_, lam4_, sq_, lq_)
+        zero = torch.zeros((), dtype=dtype, device=dev)
+        da = direction(tuple(vals[i] * vals[i + 1] for i in range(0, 10, 2)), (zero,) * 5)
 
         def fam_steps(dirs):
             """Per-family fraction-to-boundary limits, in the order of ``vals``."""
@@ -520,20 +571,34 @@ def cvar_ipm_solve(cplan: CVaRPlan, ts: TreeState, Q, R, Qslack, xRef, ralpha, F
                 a = torch.minimum(a, torch.minimum(st[i], st[i + 1]))
             return a
 
-        def gap_at(al, dirs):
+        def side_step(dirs, side):
+            """The primal (side 0: slacks) or dual (side 1: multipliers) limit."""
+            st = fam_steps(dirs)[side::2]
+            a = torch.minimum(st[0], st[1])
+            return torch.minimum(torch.minimum(a, torch.minimum(st[2], st[3])), st[4])
+
+        def steps(dirs):
+            if cfg.split_step:
+                return side_step(dirs, 0), side_step(dirs, 1)
+            a = all_step(dirs)
+            return a, a
+
+        def gap_at(aP_, aD_, dirs):
             tot = 0.0
             for i in range(0, 10, 2):
                 s_, l_ = vals[i], vals[i + 1]
-                al_ = _bc(al, s_)
-                tot = tot + _tree_sum((s_ + al_ * dirs[4 + i]) * (l_ + al_ * dirs[5 + i]))
+                tot = tot + _tree_sum((s_ + _bc(aP_, s_) * dirs[4 + i])
+                                      * (l_ + _bc(aD_, l_) * dirs[5 + i]))
             return tot / mtot
 
-        a_aff = all_step(da)
-        gap_aff = gap_at(a_aff, da)
+        a_affP, a_affD = steps(da)
+        a_aff = torch.minimum(a_affP, a_affD)
+        gap_aff = gap_at(a_affP, a_affD, da)
         sigma_c = torch.clamp((gap_aff / (gap + 1e-30)) ** 3, 0.0, 1.0)
         sg = sigma_c * gap
         corr_c = tuple(da[4 + i] * da[5 + i] - _bc(sg, vals[i]) for i in range(0, 10, 2))
-        dc = direction(tuple(vals[i] * vals[i + 1] + corr_c[i // 2] for i in range(0, 10, 2)))
+        dc = direction(tuple(vals[i] * vals[i + 1] + corr_c[i // 2] for i in range(0, 10, 2)),
+                       corr_c)
 
         # Gondzio multiple centrality correctors (see CVaRIPMConfig.gondzio)
         for _ in range(cfg.gondzio):
@@ -562,51 +627,109 @@ def cvar_ipm_solve(cplan: CVaRPlan, ts: TreeState, Q, R, Qslack, xRef, ralpha, F
             accept = (a_new > a_cur) & cand_ok
             dc = tuple(torch.where(_bc(accept, c), c, o) for c, o in zip(cand, dc))
 
-        a0 = cfg.tau * all_step(dc)
+        aP, aD = steps(dc)
+        aP, aD = cfg.tau * aP, cfg.tau * aD
         # freeze once converged (extreme barrier weights at tiny gaps would
         # otherwise corrupt later Newton systems)
         scale = 1.0 + torch.abs(obj_val(u_c, s_c, r_c))
         conv = gap < cfg.gap_tol * scale
-        a0 = torch.where(conv, 0.0, a0)
+        aP, aD = torch.where(conv, 0.0, aP), torch.where(conv, 0.0, aD)
 
         # step-quality backoff: damp (but still take) Mehrotra steps that
         # balloon complementarity
         grow = 10.0 * gap + 1e-9
         if it_idx < cfg.early_iters:
-            a0 = torch.clamp(a0, max=cfg.a_cap_early)
-        a1 = torch.where(gap_at(a0, dc) > grow, 0.3 * a0, a0)
-        a = torch.where(gap_at(a1, dc) > grow, 0.3 * a1, a1)
+            aP, aD = torch.clamp(aP, max=cfg.a_cap_early), torch.clamp(aD, max=cfg.a_cap_early)
+        for _ in range(2):
+            bk = gap_at(aP, aD, dc) > grow
+            aP, aD = torch.where(bk, 0.3 * aP, aP), torch.where(bk, 0.3 * aD, aD)
+
+        if cfg.neighborhood > 0:
+            # N∞⁻(γ) wide-neighbourhood search over geometric fractions of
+            # the step: the first whose smallest product is ≥ γ·μ(α), or no
+            # smaller than now, per tree
+            def min_prod(alP, alD):
+                return torch.stack([_tree_min((vals[i] + _bc(alP, vals[i]) * dc[4 + i])
+                                              * (vals[i + 1] + _bc(alD, vals[i]) * dc[5 + i]))
+                                    for i in range(0, 10, 2)]).amin(0)
+
+            mp0 = min_prod(zero.expand(Bt), zero.expand(Bt))
+            fracs = (1.0, 0.7, 0.5, 0.35, 0.25, 0.17, 0.12, 0.08, 0.05, 0.03, 0.02, 0.01)
+            fsel = torch.full((Bt,), fracs[-1], dtype=dtype, device=dev)
+            for f in reversed(fracs):
+                fP, fD = f * aP, f * aD
+                mp = min_prod(fP, fD)
+                ok = (mp >= cfg.neighborhood * gap_at(fP, fD, dc)) | (mp >= mp0)
+                fsel = torch.where(ok, f, fsel)
+            aP, aD = fsel * aP, fsel * aD
+            nbr_cuts = nbr_cuts + (fsel < 1.0)
 
         # a non-finite direction (overflowed barrier products on a cold f32
         # start) must not poison the iterate: freeze that tree instead
-        finite = torch.isfinite(a)
+        finite = torch.isfinite(aP) & torch.isfinite(aD)
         for c in dc:
             finite = finite & torch.isfinite(c).reshape(Bt, -1).all(1)
-        a = torch.where(finite, a, 0.0)
+        aP, aD = torch.where(finite, aP, 0.0), torch.where(finite, aD, 0.0)
+        a = torch.minimum(aP, aD)
 
+        # the primal (iterate and slacks) steps by αP, the multipliers by αD
         state = (x_c, u_c, s_c, r_c) + vals
-        new = tuple(torch.where(_bc(finite, v), v + _bc(a, v) * dv, v)
-                    for v, dv in zip(state, dc))
+        new = tuple(torch.where(_bc(finite, v), v + _bc(aD if i in _DUAL else aP, v) * dv, v)
+                    for i, (v, dv) in enumerate(zip(state, dc)))
+        if cfg.recenter > 0:
+            # the jam counter of the barrier restart (which happens at the
+            # top of the next iteration, where fresh rows are at hand)
+            jam = (a < cfg.recenter_tol) & ~conv
+            jam_cnt = torch.where(jam, jam_cnt + 1.0, 0.0)
         # best-iterate tracking (returned at the end)
         bx_, bu_, bs_, br_, bgap = best
         better = gap < bgap
         best_new = tuple(torch.where(_bc(better, v), v, b)
                          for v, b in zip((x_c, u_c, s_c, r_c), (bx_, bu_, bs_, br_))) + \
             (torch.where(better, gap, bgap),)
+        if cfg.resid == "carried":
+            # exact residual contraction: the linear families shrink by
+            # (1−α); the cones pick up the quadratic Taylor remainder of the step
+            quad_c = cone_quad(dc[0], dc[1])
+            # a jammed tree's direction can overflow the quadratic form even at
+            # a (near-)zero step, and 0·inf would poison the residual for good
+            quad_c = torch.where(torch.isfinite(quad_c), quad_c, 0.0)
+            res_c = tuple(torch.where(_bc(finite, rv), _bc(1.0 - aP, rv) * rv if extra is None
+                                      else _bc(1.0 - aP, rv) * rv + _bc(aP * aP, rv) * extra, rv)
+                          for rv, extra in zip(rs, (None,) * 4 + (quad_c,)))
         diag = {"gap": gap, "a": a, "a_aff": a_aff, "sigma": sigma_c,
                 "wmax": torch.maximum(_tree_max(lam1_ / sl1_), _tree_max(lq_ / sq_)),
                 "prim1": _tree_max(torch.abs(r1)), "rq": _tree_max(torch.abs(rq))}
-        return (new, best_new), diag
+        if cfg.diag_extra:
+            st = fam_steps(dc)
+            comp = torch.cat([(vals[i] * vals[i + 1]).reshape(Bt, -1) for i in range(0, 10, 2)],
+                             dim=1)
+
+            def nonfinite_mask(dirs):
+                return sum(torch.where(torch.isfinite(c).reshape(Bt, -1).all(1), 0.0, 2.0 ** i)
+                           for i, c in enumerate(dirs)).to(dtype)
+
+            diag.update({f"a{fam}{side}": st[2 * j + k]
+                         for j, fam in enumerate("1234q") for k, side in enumerate("sl")})
+            diag.update({
+                "cmin": comp.amin(1) / gap, "cmax": comp.amax(1) / gap,
+                "nfin": nonfinite_mask(dc),
+                "slmin": torch.stack([_tree_min(v) for v in vals[0::2]]).amin(0),
+                "lmax": torch.stack([_tree_max(v) for v in vals[1::2]]).amax(0),
+                **nf_dbg, "nfa": nonfinite_mask(da)})
+        return (new, res_c, (jam_cnt, rc_used, nbr_cuts), best_new), diag
 
     best = (x_i, u_i, s_i, r_i, torch.full((Bt,), float("inf"), dtype=dtype, device=dev))
+    res0 = (rows1 + sl1 - b1, rows2_0 + sl2 - bu, -s_i + sl3, -r_i[:, sgn_idx] + sl4, qv0 + sq)
     carry = ((x_i, u_i, s_i, r_i, sl1, mu0 / sl1, sl2, mu0 / sl2, sl3, mu0 / sl3, sl4, lam4,
-              sq, mu0 / sq), best)
+              sq, mu0 / sq), res0,
+             (zeros(Bt), zeros(Bt), torch.zeros(Bt, dtype=torch.int64, device=dev)), best)
     diags = []
     for it in range(cfg.iters):
         carry, diag = iteration(it, carry)
         diags.append(diag)
     diag_tr = {k: torch.stack([dg[k] for dg in diags], dim=1) for k in diags[0]}
-    state_f, best_f = carry
+    state_f, _, (_, rc_used, nbr_cuts), best_f = carry
     gaps = diag_tr["gap"]
     # compare the final iterate with the best seen; return the better one
     gap_last = gaps[:, -1]
@@ -618,4 +741,8 @@ def cvar_ipm_solve(cplan: CVaRPlan, ts: TreeState, Q, R, Qslack, xRef, ralpha, F
     x_f, u_f, s_f, r_f = (v.to(sdt) for v in (x_f, u_f, s_f, r_f))
     aux = {"J": J.to(sdt), "gap": torch.where(use_last, gap_last, bgap).to(sdt), "risk": r_f,
            "gaps": gaps.to(sdt), "diag": {k: v.to(sdt) for k, v in diag_tr.items()}}
+    if cfg.recenter > 0:
+        aux["recenters"] = rc_used.to(torch.int64)
+    if cfg.neighborhood > 0:
+        aux["nbr_cuts"] = nbr_cuts
     return x_f, u_f, s_f, r_f, aux

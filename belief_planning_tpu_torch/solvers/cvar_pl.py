@@ -825,7 +825,11 @@ def cvar_ipm_solve_pl(cplan: CVaRPlan, A_bl, B_bl, dh_bl, h0_bl, x_lin_bl, u_lin
     ``bx`` is (nFx,) shared or (nFx, Z) per lane; ``dh0_floor`` (None =
     always, else a bool or a (Z,) bool tensor) gates the floor. ``s_warm_bl``
     / ``r_warm_bl`` warm-start the slacks and risk variables. Returns
-    ``(x, u, s, r, aux)`` batch-last; ``aux`` holds ``J``, ``gap``, ``gaps``."""
+    ``(x, u, s, r, aux)`` batch-last; ``aux`` holds ``J``, ``gap``, ``gaps``.
+    As the reference's fused path, it reads none of ``cfg``'s diagnostic
+    options (``resid``, ``recovery``, ``neighborhood``, ``split_step``,
+    ``recenter``, ``recenter_tol``, ``diag_extra``, and ``refine``,
+    ``refine_dtype``, ``outer_dtype``): those act in ``cvar_ipm_solve``."""
     su = setup_cvar_ipm(cplan, A_bl, B_bl, dh_bl, h0_bl, x_lin_bl, u_lin_bl, p_bl, Q, R,
                         Qslack, xRef_bl, ralpha, Fx, bx, Fu, bu, cfg, S_bl, s_warm_bl,
                         r_warm_bl, dh0_floor)

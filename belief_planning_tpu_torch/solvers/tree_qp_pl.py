@@ -101,45 +101,89 @@ def _succ_transitions(plan: StagePlan, A_bl, B_bl):
 
 
 # ---------------------------------------------------------------------------
-# Small-matrix helpers on batch-last blocks (nb, i, j, T)
+# Small-matrix products of the sweeps, on batch-last blocks (nb, i, j, T)
 # ---------------------------------------------------------------------------
 
 
 def _mm(A, B):
-    return torch.einsum("bikt,bkjt->bijt", A, B)
+    """A @ B: (nb, i, k, T), (nb, k, j, T) → (nb, i, j, T), summed over k in
+    ascending order."""
+    out = A[:, :, 0, None] * B[:, None, 0]
+    for k in range(1, A.shape[2]):
+        out = out + A[:, :, k, None] * B[:, None, k]
+    return out
 
 
 def _mtm(A, B):
-    return torch.einsum("bkit,bkjt->bijt", A, B)
+    """Aᵀ @ B: (nb, k, i, T), (nb, k, j, T) → (nb, i, j, T), summed over k
+    in ascending order."""
+    out = A[:, 0, :, None] * B[:, None, 0]
+    for k in range(1, A.shape[1]):
+        out = out + A[:, k, :, None] * B[:, None, k]
+    return out
 
 
 def _mv(A, v):
-    return torch.einsum("bikt,bkt->bit", A, v)
+    """A @ v: (nb, i, k, T), (nb, k, T) → (nb, i, T), summed over k in
+    ascending order."""
+    out = A[:, :, 0] * v[:, None, 0]
+    for k in range(1, A.shape[2]):
+        out = out + A[:, :, k] * v[:, None, k]
+    return out
 
 
 def _mtv(A, v):
-    return torch.einsum("bkit,bkt->bit", A, v)
+    """Aᵀ @ v: (nb, k, i, T), (nb, k, T) → (nb, i, T), summed over k in
+    ascending order."""
+    out = A[:, 0] * v[:, None, 0]
+    for k in range(1, A.shape[1]):
+        out = out + A[:, k] * v[:, None, k]
+    return out
 
 
-def _riccati_step(W_P, Qx2, Dab2, Ru2, A, B, n):
+class Products(NamedTuple):
+    """The four small-matrix products a sweep uses."""
+
+    mm: Any
+    mtm: Any
+    mv: Any
+    mtv: Any
+
+
+# Batched library products: the plain versions of K1 and K2 (and their f32
+# accuracy bars on the card) use these. cuBLAS may pick another kernel, and
+# another summation order, for another batch count.
+LIBRARY = Products(mm=lambda A, B: torch.einsum("bikt,bkjt->bijt", A, B),
+                   mtm=lambda A, B: torch.einsum("bkit,bkjt->bijt", A, B),
+                   mv=lambda A, v: torch.einsum("bikt,bkt->bit", A, v),
+                   mtv=lambda A, v: torch.einsum("bkit,bkt->bit", A, v))
+# Sums over the contracted index (at most n + d terms) in a fixed order, one
+# multiply and one add an element and a term: every output element rounds the
+# same whatever the batch around it. The branch-sharded tree KKT
+# (parallel/tree_shard.py) runs the sweeps on parts of a level with these and
+# equals the whole level's sweeps with these bit for bit.
+FIXED_ORDER = Products(_mm, _mtm, _mv, _mtv)
+
+
+def _riccati_step(W_P, Qx2, Dab2, Ru2, A, B, n, pr: Products = LIBRARY):
     """One backward Riccati step on a level block (the KKT solves are pure
     linear responses, so no affine part). Returns (P, K, Hinv, Acl)."""
     Pxx = W_P[:, :n, :n]
     Pxu = W_P[:, :n, n:]
     Puu = W_P[:, n:, n:]
-    BtPxx = _mtm(B, Pxx)                                  # (nb, d, n, T)
-    BtPxu = _mtm(B, Pxu)                                  # (nb, d, d, T)
-    Huu = Ru2 + (_mm(BtPxx, B) + BtPxu + BtPxu.transpose(1, 2) + Puu)
-    GtPF_x = _mm(BtPxx, A) + _mtm(Pxu, A)
+    BtPxx = pr.mtm(B, Pxx)                                # (nb, d, n, T)
+    BtPxu = pr.mtm(B, Pxu)                                # (nb, d, d, T)
+    Huu = Ru2 + (pr.mm(BtPxx, B) + BtPxu + BtPxu.transpose(1, 2) + Puu)
+    GtPF_x = pr.mm(BtPxx, A) + pr.mtm(Pxu, A)
     L = torch.cat([GtPF_x, Dab2.transpose(1, 2)], dim=2)  # (nb, d, nd, T)
     Hinv = _small_inv_bl(Huu)
-    HL = _mm(Hinv, L)
+    HL = pr.mm(Hinv, L)
     K = -HL
-    P = -_mtm(L, HL)
-    P[:, :n, :n] += Qx2 + _mtm(A, _mm(Pxx, A))
+    P = -pr.mtm(L, HL)
+    P[:, :n, :n] += Qx2 + pr.mtm(A, pr.mm(Pxx, A))
     P = 0.5 * (P + P.transpose(1, 2))
     # Acl = F + G K with F = [[A, 0], [0, 0]], G = [B; I]
-    top = _mm(B, K)
+    top = pr.mm(B, K)
     top[:, :, :n] += A
     return P, K, Hinv, torch.cat([top, K], dim=1)
 
@@ -157,7 +201,8 @@ def _repeat0(a, m):
     return torch.repeat_interleave(a, m, dim=0)
 
 
-def _factor_blocks(levels, Qx2_f, Dab2_f, Ru2_f, Pterm2, A_st, B_st, n, d, m):
+def _factor_blocks(levels, Qx2_f, Dab2_f, Ru2_f, Pterm2, A_st, B_st, n, d, m,
+                   pr: Products = LIBRARY):
     """Backward quadratic sweep; per-level K (nb,l,d,nd,T), Hinv, Acl."""
     NB = len(levels) - 1
     K_l, Hinv_l, Acl_l = [None] * (NB + 1), [None] * (NB + 1), [None] * (NB + 1)
@@ -174,7 +219,7 @@ def _factor_blocks(levels, Qx2_f, Dab2_f, Ru2_f, Pterm2, A_st, B_st, n, d, m):
         Ks, His, Acls = [], [], []
         for j in range(mt.l - 1, -1, -1):
             W, K, Hinv, Acl = _riccati_step(W, Qx2_b[:, j], Dab2_b[:, j],
-                                            Ru2_b[:, j], A_b[:, j], B_b[:, j], n)
+                                            Ru2_b[:, j], A_b[:, j], B_b[:, j], n, pr)
             Ks.append(K)
             His.append(Hinv)
             Acls.append(Acl)
@@ -184,7 +229,8 @@ def _factor_blocks(levels, Qx2_f, Dab2_f, Ru2_f, Pterm2, A_st, B_st, n, d, m):
     return K_l, Hinv_l, Acl_l
 
 
-def _linear_blocks(levels, K_l, Hinv_l, Acl_l, B_st, qx_f, qu_f, qterm, n, d, m):
+def _linear_blocks(levels, K_l, Hinv_l, Acl_l, B_st, qx_f, qu_f, qterm, n, d, m,
+                   pr: Products = LIBRARY):
     """Backward linear sweep; per-level feed-forward blocks kff (nb,l,d,T)."""
     NB = len(levels) - 1
     kff_l = [None] * (NB + 1)
@@ -198,15 +244,15 @@ def _linear_blocks(levels, K_l, Hinv_l, Acl_l, B_st, qx_f, qu_f, qterm, n, d, m)
         qx_b, qu_b, B_b = _ublk(qx_f, mt), _ublk(qu_f, mt), _ublk(B_st, mt)
         kffs = []
         for j in range(mt.l - 1, -1, -1):
-            l_u = qu_b[:, j] + _mtv(B_b[:, j], p[:, :n]) + p[:, n:]
-            kffs.append(-_mv(Hinv_l[k][:, j], l_u))
-            p = _mtv(Acl_l[k][:, j], p) + _mtv(K_l[k][:, j], qu_b[:, j])
+            l_u = qu_b[:, j] + pr.mtv(B_b[:, j], p[:, :n]) + p[:, n:]
+            kffs.append(-pr.mv(Hinv_l[k][:, j], l_u))
+            p = pr.mtv(Acl_l[k][:, j], p) + pr.mtv(K_l[k][:, j], qu_b[:, j])
             p[:, :n] += qx_b[:, j]
         kff_l[k] = torch.stack(kffs[::-1], dim=1)
     return kff_l
 
 
-def _forward_blocks(levels, K_l, Acl_l, B_st, kff_l, n, d, m, T):
+def _forward_blocks(levels, K_l, Acl_l, B_st, kff_l, n, d, m, T, pr: Products = LIBRARY):
     """Forward rollout from a zero root state; flat dx (totalx,n,T), du (totalu,d,T)."""
     NB = len(levels) - 1
     xi = B_st.new_zeros((1, n + d, T))
@@ -217,9 +263,9 @@ def _forward_blocks(levels, K_l, Acl_l, B_st, kff_l, n, d, m, T):
         us, xs = [], []
         for j in range(mt.l):
             kf = kff_l[k][:, j]
-            us.append(_mv(K_l[k][:, j], xi) + kf)
+            us.append(pr.mv(K_l[k][:, j], xi) + kf)
             xs.append(xi[:, :n])
-            xi = _mv(Acl_l[k][:, j], xi) + torch.cat([_mv(B_b[:, j], kf), kf], dim=1)
+            xi = pr.mv(Acl_l[k][:, j], xi) + torch.cat([pr.mv(B_b[:, j], kf), kf], dim=1)
         if mt.leaf:
             xs.append(xi[:, :n])
         du_parts.append(torch.stack(us, dim=1).reshape(mt.nb * mt.l, d, T))

@@ -33,7 +33,10 @@ files (``test_torch_tree_admm.py``, ``test_torch_admm_oracle.py``,
 ``test_torch_quad_env.py``) from a later one (917.6 s, 435 passed); the
 five slice-11 files (``test_torch_parallel.py``, ``test_torch_examples.py``,
 ``test_torch_tree_shard.py``, ``test_torch_utils.py``,
-``test_torch_viz.py``) from a later one (912.6 s, 487 passed).
+``test_torch_viz.py``) from a later one (912.6 s, 487 passed); the three
+slice-12 files (``test_torch_cvar_diag_options.py``,
+``test_torch_lane_refline.py``, ``test_torch_port_scripts.py``) from
+each file run alone.
 
 This file imports neither jax nor torch.
 """
@@ -85,6 +88,9 @@ FILE_SECONDS = {
     "tests/test_torch_tree_shard.py": 33.0,
     "tests/test_torch_utils.py": 7.6,
     "tests/test_torch_viz.py": 4.7,
+    "tests/test_torch_cvar_diag_options.py": 68.3,
+    "tests/test_torch_lane_refline.py": 23.9,
+    "tests/test_torch_port_scripts.py": 18.2,
     "tests/test_torch_branch_mpc.py": 43.1,
     "tests/test_torch_kernel_cpu_build.py": 31.8,
     "tests/test_torch_cvar_admm.py": 31.2,

@@ -5,8 +5,8 @@ the CVaR overtake (N=3, NB=1, m=3, ralpha 0.9) and the merge deployment
 (m=2, ralpha 0.1, per-tree S, bx and a mixed dh[0] floor), 3 trees each.
 
 Cases: the default; S with the floor and one refinement round; 2 Gondzio
-correctors; ``outer_dtype="f64"`` on a float32 solve. The reference's
-diagnostic options are not ported and raise. Bars in f64: every gap within rtol 1e-8 (atol
+correctors; ``outer_dtype="f64"`` on a float32 solve (the diagnostic
+options: ``tests/test_torch_cvar_diag_options.py``). Bars in f64: every gap within rtol 1e-8 (atol
 1e-10), the root input within 1e-7, the diagnostics within rtol 1e-7. Late
 CVaR iterates are chaotic in the reference itself, so each run stops before
 the step where the JAX package's own jitted and eager runs part: the 10th
@@ -198,12 +198,3 @@ def test_step_restart_keeps_the_better_solve(problems):
     want_u = torch.where(better[:, None, None], u_h, r1.uPred)
     assert torch.equal(r2.uPred, want_u)
     assert torch.equal(r2.gap, torch.minimum(aux_h["gap"], r1.gap))
-
-
-@pytest.mark.parametrize("option", [("resid", "carried"), ("recovery", "stable"),
-                                    ("neighborhood", 0.3), ("split_step", True),
-                                    ("recenter", 2), ("diag_extra", True)])
-def test_diagnostic_options_are_not_ported(problems, option):
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        _port_solve(problems["merge"], dict([option]), 2, torch.float64)
-

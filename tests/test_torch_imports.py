@@ -24,7 +24,12 @@ def _sources():
                                         ROOT / "scripts" / "torch_port_profile_ipm_kernel.py",
                                         ROOT / "scripts" / "torch_port_mxu_probe.py",
                                         ROOT / "scripts" / "torch_port_cvar_kernel_ab.py",
-                                        ROOT / "scripts" / "torch_port_cvar_kernel_phases.py"]
+                                        ROOT / "scripts" / "torch_port_cvar_kernel_phases.py",
+                                        ROOT / "scripts" / "torch_port_cvar_f32_diag.py",
+                                        ROOT / "scripts" / "torch_port_f32_parity_episode.py",
+                                        ROOT / "scripts" / "torch_port_cvar_parity_episode.py",
+                                        ROOT / "scripts" / "torch_port_plain_products.py",
+                                        ROOT / "scripts" / "torch_port_cvar_option_spread.py"]
 
 
 def _imported_roots(path):
@@ -43,6 +48,17 @@ def _imported_roots(path):
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import(path):
     assert not (_imported_roots(path) & FORBIDDEN)
+
+
+def test_hard_oracle_script_imports_only_the_oracle():
+    """The one script that takes the reference's f64 oracle imports nothing
+    else of the JAX package (the oracle is NumPy and SciPy only)."""
+    path = ROOT / "scripts" / "torch_port_cvar_hard_oracle.py"
+    mods = {n.module for n in ast.walk(ast.parse(path.read_text()))
+            if isinstance(n, ast.ImportFrom) and n.module}
+    assert not (_imported_roots(path) & {"jax", "jaxlib"})
+    assert {m for m in mods if m.split(".")[0] == "belief_planning_tpu"} == {
+        "belief_planning_tpu.oracle.reference_cvar", "belief_planning_tpu.oracle.reference_tree"}
 
 
 def test_import_loads_no_jax():

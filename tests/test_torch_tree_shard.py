@@ -4,8 +4,9 @@
 
 - ``_random_tree_kkt_case`` of ``tests/test_parallel.py`` (N=4, NB=3, m=2,
   f64, T=8) over 4 ranks as (dp, mp) = (2, 2) and (1, 4): the gathered
-  result equals the port's unsharded level-blocked sweeps exactly
-  (``torch.equal``), each rank's local blocks are its slices of it, and the
+  result equals the port's unsharded level-blocked sweeps with the same
+  fixed-order products (``pr=FIXED_ORDER``) exactly (``torch.equal``), each
+  rank's local blocks are its slices of it, and the
   sharded levels are the ones mp divides;
 - the port's unsharded sweeps equal the JAX package's ``_factor_blocks`` +
   ``_linear_blocks`` + ``_forward_blocks`` to 1e-12;
@@ -28,6 +29,7 @@ from belief_planning_tpu_torch.parallel.launch import launch
 from belief_planning_tpu_torch.parallel.tree_shard import level_sharding
 from belief_planning_tpu_torch.solvers.tree_qp import build_stage_plan
 from belief_planning_tpu_torch.solvers.tree_qp_pl import (
+    FIXED_ORDER,
     _factor_blocks,
     _forward_blocks,
     _linear_blocks,
@@ -57,10 +59,10 @@ def unsharded(case):
     N, NB, m, n, d = DIMS
     levels = build_levels(build_stage_plan(build_topology(N, NB, m, n, d)))
     K_l, Hinv_l, Acl_l = _factor_blocks(levels, bl["Qx2"], bl["Dab2"], bl["Ru2"], bl["Pterm2"],
-                                        bl["A"], bl["B"], n, d, m)
+                                        bl["A"], bl["B"], n, d, m, FIXED_ORDER)
     kff_l = _linear_blocks(levels, K_l, Hinv_l, Acl_l, bl["B"], bl["qx"], bl["qu"],
-                           bl["qterm"], n, d, m)
-    return levels, _forward_blocks(levels, K_l, Acl_l, bl["B"], kff_l, n, d, m, T)
+                           bl["qterm"], n, d, m, FIXED_ORDER)
+    return levels, _forward_blocks(levels, K_l, Acl_l, bl["B"], kff_l, n, d, m, T, FIXED_ORDER)
 
 
 @pytest.fixture(scope="module")
