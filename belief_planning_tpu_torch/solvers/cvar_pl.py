@@ -558,13 +558,15 @@ def kernel_plan(lib, ints, B: int, dtype, device_index: int) -> dict:
 class FusedCVaRIterationKernel:
     """Wrapper of ``csrc/cvar_ipm_iter.cu`` (replaces the reference's
     ``cvar_pl._make_pallas_cvar_iteration``), or of another source with its C
-    interface. ``launches`` counts the kernel launches, and nothing else;
+    interface. ``launches`` counts the kernel launches, and nothing else,
+    ``launches_f64`` those of them in double;
     ``build_log`` / ``build_seconds`` are what nvcc printed and took when
     this process built the library."""
 
     def __init__(self, source: Path = KERNEL_SOURCE):
         self.source = Path(source)
         self.launches = 0
+        self.launches_f64 = 0
         self.build_log = ""
         self.build_seconds = 0.0
         self._lib = None
@@ -597,6 +599,7 @@ class FusedCVaRIterationKernel:
         if err != 0:
             raise RuntimeError(f"cvar_ipm_iter launch failed: CUDA error {err}")
         self.launches += 1
+        self.launches_f64 += x_c.dtype == torch.float64
         return (*outs, gap)
 
 

@@ -170,9 +170,19 @@ Phases, one JSON line each:
     self-driven and teacher-forced, their maxima and every mode's launches,
     the QP's refine10 teacher-forced deviation held at 1e-3), then
     ``slice12_seconds``;
-14. the ``kernels`` line (all five kernels; K1's with an entry for each
-    instantiation; K1's and K2's launches by path, the ranks' and the
-    parity episodes' too), the ``nvidia-smi`` line, and the result line.
+14. slice 13, ``cvar_f32_parity``: ``scripts/torch_port_cvar_f32_parity.py``
+    at the reference's size (the hard cold-start batch, B=256, seed 0; 3
+    timed warm steps a mode where the reference script times 5), its four
+    modes on K2: ``ref`` (f64, IPM-100 with 2 correctors), ``f32`` (IPM-24
+    with 2), ``refine24`` and ``refine60g4`` (the f32 solve, then an f64
+    restart of 24 iterations, or of 60 at 4 correctors): the tight lanes,
+    the u0 error columns against ``ref``, each mode's ms a warm step, and
+    each mode's f32 and f64 launches, checked against the mode's count
+    (every output finite);
+15. the ``kernels`` line (all five kernels; K1's with an entry for each
+    instantiation; K1's and K2's launches by path, the ranks', the parity
+    episodes' and the f32 parity's too), the ``nvidia-smi`` line, and the
+    result line.
 
 Every kernel source is built at the start, in parallel (one nvcc each).
 
@@ -2974,6 +2984,38 @@ def run_slice12_phases(dev, card, L):
     return launches
 
 
+F32_PARITY_B = 256
+F32_PARITY_REPS = 3             # the reference script's 5 timed warm steps, cut to 3
+
+
+def run_cvar_f32_parity_phase(dev, card, K2):
+    """``cvar_f32_parity``: the four modes of
+    ``scripts/torch_port_cvar_f32_parity.py`` at B=256 on K2 (its counters
+    set to 0 by the script just before each mode, read just after); fails
+    unless every mode makes its count of f32 and f64 launches and every
+    output is finite. Returns K2's launches over the phase."""
+    t0 = time.perf_counter()
+    res = load_script("torch_port_cvar_f32_parity").f32_parity(
+        dev, F32_PARITY_B, F32_PARITY_REPS, kernel=K2, out=lambda *_: None)
+    modes = res["modes"]
+    got = {m: list(r["launches"]) for m, r in modes.items()}
+    want = {m: list(r["expected_launches"]) for m, r in modes.items()}
+    finite = {m: r["finite"] for m, r in modes.items()}
+    emit({"phase": "cvar_f32_parity", "B": F32_PARITY_B, "timed_warm_steps": F32_PARITY_REPS,
+          "tight_lanes": {"cold": res["tight_cold"], "warm": res["tight_warm"]},
+          "u0_error_vs_ref": res["errors"], "ms_per_warm_step": {m: r["ms"] for m, r in modes.items()},
+          "cold_step_s": {m: r["cold_s"] for m, r in modes.items()},
+          "gap_p50": {m: {"cold": float(np.percentile(r["gap_cold"], 50)),
+                          "warm": float(np.percentile(r["gap_warm"], 50))}
+                      for m, r in modes.items()},
+          "launches_f32_f64": got, "launches_expected": want, "finite": finite,
+          "seconds": time.perf_counter() - t0, **card})
+    if got != want or not all(finite.values()):
+        raise AssertionError(f"cvar_f32_parity: launches {got} (expected {want}), "
+                             f"finite {finite}")
+    return sum(sum(v) for v in got.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -3243,9 +3285,12 @@ def main() -> int:
     parity = run_slice12_phases(dev, card, Launches(K, K2, K3, K5))
     k1_sharded["qp_parity_episode"] = parity["qp_parity_episode"]
     k2_sharded["cvar_parity_episode"] = parity["cvar_parity_episode"]
+
+    # ---- 14. slice 13: the fused CVaR step's f32 parity on K2 ------------------------
+    k2_sharded["cvar_f32_parity"] = run_cvar_f32_parity_phase(dev, card, K2)
     cvar_lines["launches_by_path"] = {"main_path": cvar_lines["launches"], **k2_sharded}
 
-    # ---- 14. kernels line, card line, result ------------------------------------
+    # ---- 15. kernels line, card line, result ------------------------------------
     emit({"kernels": [{
         "name": "tree_qp_ipm_iter",
         "route": "cuda",

@@ -36,7 +36,9 @@ five slice-11 files (``test_torch_parallel.py``, ``test_torch_examples.py``,
 ``test_torch_viz.py``) from a later one (912.6 s, 487 passed); the three
 slice-12 files (``test_torch_cvar_diag_options.py``,
 ``test_torch_lane_refline.py``, ``test_torch_port_scripts.py``) from
-each file run alone.
+each file run alone; ``test_torch_port_scripts.py`` again and the slice-13
+file ``test_torch_study_scripts.py`` from a later full run (956.1 s, 514
+passed).
 
 This file imports neither jax nor torch.
 """
@@ -90,7 +92,8 @@ FILE_SECONDS = {
     "tests/test_torch_viz.py": 4.7,
     "tests/test_torch_cvar_diag_options.py": 68.3,
     "tests/test_torch_lane_refline.py": 23.9,
-    "tests/test_torch_port_scripts.py": 18.2,
+    "tests/test_torch_port_scripts.py": 28.8,
+    "tests/test_torch_study_scripts.py": 64.9,
     "tests/test_torch_branch_mpc.py": 43.1,
     "tests/test_torch_kernel_cpu_build.py": 31.8,
     "tests/test_torch_cvar_admm.py": 31.2,

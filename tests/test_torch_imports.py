@@ -29,7 +29,9 @@ def _sources():
                                         ROOT / "scripts" / "torch_port_f32_parity_episode.py",
                                         ROOT / "scripts" / "torch_port_cvar_parity_episode.py",
                                         ROOT / "scripts" / "torch_port_plain_products.py",
-                                        ROOT / "scripts" / "torch_port_cvar_option_spread.py"]
+                                        ROOT / "scripts" / "torch_port_cvar_option_spread.py",
+                                        ROOT / "scripts" / "torch_port_cvar_f32_study.py",
+                                        ROOT / "scripts" / "torch_port_cvar_f32_parity.py"]
 
 
 def _imported_roots(path):
@@ -50,15 +52,28 @@ def test_no_jax_import(path):
     assert not (_imported_roots(path) & FORBIDDEN)
 
 
-def test_hard_oracle_script_imports_only_the_oracle():
-    """The one script that takes the reference's f64 oracle imports nothing
-    else of the JAX package (the oracle is NumPy and SciPy only)."""
-    path = ROOT / "scripts" / "torch_port_cvar_hard_oracle.py"
+def _check_oracle_only(path):
     mods = {n.module for n in ast.walk(ast.parse(path.read_text()))
             if isinstance(n, ast.ImportFrom) and n.module}
     assert not (_imported_roots(path) & {"jax", "jaxlib"})
-    assert {m for m in mods if m.split(".")[0] == "belief_planning_tpu"} == {
+    return {m for m in mods if m.split(".")[0] == "belief_planning_tpu"}
+
+
+def test_hard_oracle_script_imports_only_the_oracle():
+    """The one script that takes the reference's f64 oracle imports nothing
+    else of the JAX package (the oracle is NumPy and SciPy only)."""
+    assert _check_oracle_only(ROOT / "scripts" / "torch_port_cvar_hard_oracle.py") == {
         "belief_planning_tpu.oracle.reference_cvar", "belief_planning_tpu.oracle.reference_tree"}
+
+
+@pytest.mark.parametrize("name", ["torch_port_qp_iter_study", "torch_port_cvar_iter_study",
+                                  "torch_port_cvar_overtake_gate_diag", "torch_port_merge_gate"])
+def test_oracle_scripts_import_only_the_oracle(name):
+    """The other scripts that take the f64 oracle import nothing else of the
+    JAX package either."""
+    assert _check_oracle_only(ROOT / "scripts" / f"{name}.py") <= {
+        "belief_planning_tpu.oracle.reference_cvar", "belief_planning_tpu.oracle.reference_tree",
+        "belief_planning_tpu.oracle.qcqp"}
 
 
 def test_import_loads_no_jax():
